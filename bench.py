@@ -1,11 +1,13 @@
 #!/usr/bin/env python
-"""Headline benchmark: full-scene 1080p frame time on one TPU chip.
+"""Headline benchmark: full-scene 1080p frame time on one NVIDIA GPU.
 
-Renders the BASELINE.json north-star workload — 1920x1080 Kerr frame with
+Renders the BASELINE.json north-star workload — 1920x1080 frame with
 volumetric accretion disk + dust clouds + skybox + post FX, reference
 quality settings (2000-step cap, 0.3M base step) — and prints ONE JSON
-line. Baseline: 33.33 ms/frame (>30 fps target; the CUDA reference
-publishes no numbers, see BASELINE.md). vs_baseline > 1.0 beats the target.
+line, with the card's name and power limit beside it. Baseline: 33.33
+ms/frame (>30 fps target; the CUDA reference publishes no numbers, see
+BASELINE.md). vs_baseline > 1.0 beats the target. Fails on a machine
+without a GPU, and when the golden parity gate fails.
 
 Usage: python bench.py [--small] [--frames N] [--loop while|scan|pallas]
 """
@@ -14,238 +16,99 @@ import argparse
 import json
 import pathlib
 import sys
-import time as _time
+
+sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent))
+
+from tools.benchlib import (  # noqa: E402
+    card_info,
+    require_gpu,
+    time_batches,
+    time_first_call,
+)
 
 BASELINE_MS = 1000.0 / 30.0
-GOLDEN_DIR = pathlib.Path(__file__).resolve().parent / "tests" / "goldens"
 
 
 def parity_gate(loop: str) -> dict:
-    """On-chip pixel gate: render the committed golden configs with the
-    BENCHMARKED code path (compiled Pallas on TPU) and RMSE-gate them
-    against the CPU-rendered goldens — every benchmarked build also proves
-    correctness on the real chip (VERDICT r1 #5). Returns
-    {"pass": bool, "cases": {name: rmse}}."""
+    """Render the golden cases (tools/golden_cases.py) with the benchmarked
+    march and RMSE-gate them against the CPU-rendered goldens. A missing
+    golden fails the gate. Returns {"pass": bool, "cases": {name: rmse}}."""
     import numpy as np
 
-    from relativisticraytracer_tpu.config import (
-        CameraEffects,
-        RenderSettings,
-        SceneConfig,
-        effects_off,
-    )
-    from relativisticraytracer_tpu.render.camera import camera_state_from_pose
-    from relativisticraytracer_tpu.render.pipeline import Renderer
-    from relativisticraytracer_tpu.render.skybox import procedural_starfield
+    from tools.golden_cases import CASES, GOLDEN_DIR, render_case, rmse_u8
 
-    # Subset of tools/make_goldens.py cases: vacuum + full scene bracket the
-    # kernel's code paths; the 192x108 off-axis and 512^2 frames are the
-    # production-shape insurance (VERDICT r2 #5) — resolution-dependent
-    # Mosaic issues (tile padding, lane index math at large extents) would
-    # pass every 64x48-only gate. full_budget_192x108 runs the PRODUCTION
-    # 2000-step cap (VERDICT r3 #5): the unroll-40 record while-loop runs
-    # 50 blocks deep there vs 10 at the 400-step cases — a step-cap-
-    # dependent Mosaic issue would pass every 400-step gate.
-    pose = ((0.0, 5.0, -38.0), 0.0, -6.0)
-    cases = [
-        ("schwarzschild_vacuum",
-         dict(enable_disk=False, enable_clouds=False), False,
-         (64, 48), pose, 2.0, 400),
-        ("kerr09_vacuum",
-         dict(enable_disk=False, enable_clouds=False, spin_a=0.9), False,
-         (64, 48), pose, 2.0, 400),
-        ("disk_only", dict(enable_clouds=False), False, (64, 48), pose,
-         2.0, 400),
-        ("full_scene_fx", dict(), True, (64, 48), pose, 2.0, 400),
-        ("offaxis_full_192x108", dict(), True, (192, 108),
-         ((-18.0, -5.0, -38.0), 18.0, 4.0), 7.0, 400),
-        ("full_scene_512", dict(), True, (512, 512), pose, 2.0, 400),
-        ("full_budget_192x108", dict(), True, (192, 108),
-         ((0.0, 10.0, -60.0), 0.0, -10.0), 10.0, 2000),
-    ]
-    sky = procedural_starfield(64, 128)
     out = {"pass": True, "cases": {}}
-    for name, scene_kw, effects_on, (w, h), case_pose, t, steps in cases:
+    for case in CASES:
+        name = case[0]
         golden_path = GOLDEN_DIR / f"{name}.npy"
         if not golden_path.exists():
-            # an EXPECTED golden that is absent is a gate failure, not a
-            # silent skip — a partially-missing golden set must never
-            # report "pass" (VERDICT r4 weak #4)
             out["cases"][name] = "missing"
             out["pass"] = False
             continue
-        cam = camera_state_from_pose(*case_pose)
-        scene = SceneConfig(max_steps=steps, **scene_kw)
-        settings = RenderSettings(width=w, height=h, max_steps=steps,
-                                  loop=loop)
-        r = Renderer(scene, settings, skybox_rgba=sky)
-        effects = CameraEffects() if effects_on else effects_off()
-        got = r.render_np(cam, effects, time=t)
-        want = np.load(golden_path)
-        diff = got[..., :3].astype(int) - want[..., :3].astype(int)
-        rmse = float(np.sqrt(np.mean((diff / 255.0) ** 2)))
-        out["cases"][name] = round(rmse, 6)
-        if rmse >= 1e-3:
-            out["pass"] = False
+        rmse = rmse_u8(render_case(case, loop), np.load(golden_path))
+        out["cases"][name] = rmse
+        out["pass"] = out["pass"] and rmse < 1e-3
     return out
-
-
-def march_mfu(scene, camera, effects, frames: int = 5) -> dict:
-    """MFU-style march regression number (VERDICT r3 #5): time the A record
-    pass alone at the headline pose and report lane-steps/s against the
-    measured VPU-issue roofline (docs/roofline.json; tools/vpu_roofline.py).
-    100% = the demand model's LOW bound (265 jaxpr ops/lane-step at the
-    measured mul+add pairing) — the kernel has measured at/above it since
-    round 3 (Mosaic folds below the jaxpr op count), so a regression below
-    ~95% flags real lost march throughput."""
-    import time as t_
-    import jax
-    import jax.numpy as jnp
-    import numpy as np
-
-    from relativisticraytracer_tpu.ops.pallas_compact import (
-        march_pallas_camera_sky_record,
-    )
-
-    docs = pathlib.Path(__file__).resolve().parent / "docs"
-    # both constants come from committed measurements; a missing or
-    # incomplete JSON fails the probe (caught by the caller and reported)
-    # rather than silently quoting a stale literal (VERDICT r4 weak #8)
-    roofline = json.loads((docs / "roofline.json").read_text())
-    fire = json.loads((docs / "media_fire.json").read_text())
-    # mandated lane-steps at the shipped A_BLOCK_H=16 block shape
-    lane_steps = fire["march_lane_steps"]["16x128"]
-    floor_ms = roofline["vacuum_issue_floor_ms"][0]
-
-    def a_pass(t):
-        outs = march_pallas_camera_sky_record(
-            scene, camera, effects, jnp.float32(t), 1920, 1080,
-            scene.max_steps, 2048, 4096)
-        return outs[0]
-
-    np.asarray(jnp.sum(a_pass(1.0)[:2, :8]))  # compile + sync
-    t0 = t_.perf_counter()
-    outs = [a_pass(10.0 + i / 24.0) for i in range(frames)]
-    np.asarray(jnp.sum(outs[-1][:2, :8]))
-    a_ms = (t_.perf_counter() - t0) * 1000.0 / frames
-    return {
-        "march_ms": round(a_ms, 2),
-        "lane_steps_per_s": round(lane_steps / (a_ms / 1000.0) / 1e9, 2),
-        "pct_of_issue_model": round(100.0 * floor_ms / a_ms, 1),
-    }
 
 
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--small", action="store_true", help="256x256 quick sanity run")
-    ap.add_argument("--frames", type=int, default=5)
-    ap.add_argument("--loop", default=None, choices=["while", "scan", "pallas"])
+    ap.add_argument("--frames", type=int, default=5,
+                    help="frames per timed batch (3 batches)")
+    ap.add_argument("--loop", default="auto",
+                    choices=["auto", "while", "scan", "pallas"])
     ap.add_argument("--no-parity", action="store_true",
                     help="skip the on-chip golden parity gate")
     args = ap.parse_args()
 
-    import jax
-    import numpy as np
+    dev = require_gpu()
 
     from relativisticraytracer_tpu.config import (
         CameraEffects,
         RenderSettings,
         SceneConfig,
     )
-    from relativisticraytracer_tpu.render.camera import camera_state_from_pose
+    from relativisticraytracer_tpu.render.camera import default_camera
     from relativisticraytracer_tpu.render.pipeline import Renderer
     from relativisticraytracer_tpu.render.skybox import procedural_starfield
 
-    platform = jax.devices()[0].platform
-    loop = args.loop or "auto"
-    if args.small:
-        width, height = 256, 256
-    else:
-        width, height = 1920, 1080
-
+    width, height = (256, 256) if args.small else (1920, 1080)
     scene = SceneConfig()  # full reference scene, max_steps=2000
-    settings = RenderSettings(
-        width=width, height=height, max_steps=scene.max_steps, loop=loop
-    )
+    settings = RenderSettings(width=width, height=height, loop=args.loop)
     renderer = Renderer(scene, settings,
                         skybox_rgba=procedural_starfield(2048, 4096))
+    loop = settings.resolved_loop()
 
     # Reference startup pose (src/main.cpp:128-130); sim clock advances at
     # the recording rate (main.cpp:511-513).
-    camera = camera_state_from_pose((0.0, 10.0, -60.0), 0.0, -10.0)
+    camera = default_camera()
     effects = CameraEffects()
 
-    # Warmup / compile. Renderer construction is lazy (jax.jit), so a
-    # Pallas failure (e.g. Mosaic lowering on an incompatible libtpu)
-    # surfaces HERE — fall back to the while-loop path then.
-    try:
-        renderer.render(camera, effects, 0.0).block_until_ready()
-    except Exception:
-        if settings.resolved_loop() != "pallas":
-            raise
-        print("# pallas path failed to compile; falling back to loop=while",
-              file=sys.stderr)
-        loop = "while"
-        settings = RenderSettings(
-            width=width, height=height, max_steps=scene.max_steps, loop="while"
-        )
-        renderer = Renderer(
-            scene, settings, skybox_rgba=procedural_starfield(2048, 4096)
-        )
-        renderer.render(camera, effects, 0.0).block_until_ready()
+    def frame(i):
+        return renderer.render(camera, effects, 1.0 + i / 24.0)
 
-    # Latency: blocking per frame.
-    lat = []
-    for i in range(args.frames):
-        t = 1.0 + i / 24.0
-        t0 = _time.perf_counter()
-        renderer.render(camera, effects, t).block_until_ready()
-        lat.append((_time.perf_counter() - t0) * 1000.0)
-
-    # Throughput: pipelined dispatch (how an animation job actually runs —
-    # the reference's recording loop is also throughput-bound).
-    t0 = _time.perf_counter()
-    outs = [
-        renderer.render(camera, effects, 10.0 + i / 24.0)
-        for i in range(args.frames)
-    ]
-    jax.block_until_ready(outs)
-    thr_ms = (_time.perf_counter() - t0) * 1000.0 / args.frames
+    compile_s = time_first_call(frame)
+    ms, batches = time_batches(frame, batches=3, per_batch=args.frames)
 
     result = {
-        "metric": (
-            f"full_scene_{height}p_frame_time"
-            f"[{platform},{settings.resolved_loop()}]"
-        ),
-        "value": round(thr_ms, 3),
+        "metric": f"full_scene_{height}p_frame_time[{dev.device_kind},{loop}]",
+        "value": ms,
         "unit": "ms/frame",
-        "vs_baseline": round(BASELINE_MS / thr_ms, 4),
+        "vs_baseline": BASELINE_MS / ms,
+        "batches_ms": batches,
+        "compile_s": compile_s,
+        "device": {"platform": dev.platform, "kind": dev.device_kind},
+        "card": card_info(),
     }
-
-    if (not args.small and settings.resolved_loop() == "pallas"
-            and platform == "tpu"):
-        try:
-            result["march"] = march_mfu(scene, camera, effects,
-                                        frames=args.frames)
-        except Exception as e:  # regression metric only — never fatal
-            print(f"# march MFU probe failed: {e!r}", file=sys.stderr)
-
     if not args.no_parity:
-        gate = parity_gate(settings.resolved_loop())
-        if not gate["cases"]:
-            result["parity"] = "skipped"  # no goldens found — verified nothing
-        else:
-            result["parity"] = "pass" if gate["pass"] else "fail"
+        gate = parity_gate(loop)
+        result["parity"] = "pass" if gate["pass"] else "fail"
         result["parity_rmse"] = gate["cases"]
 
     print(json.dumps(result))
-    print(
-        f"# latency: {[round(t, 1) for t in lat]} ms | throughput "
-        f"{1000.0 / thr_ms:.2f} fps | target {BASELINE_MS:.1f} ms",
-        file=sys.stderr,
-    )
     if result.get("parity") == "fail":
-        print("# PARITY GATE FAILED on this chip/backend", file=sys.stderr)
+        print("# PARITY GATE FAILED on this device", file=sys.stderr)
         sys.exit(1)
 
 

@@ -1,12 +1,12 @@
-// framesink — native frame consumer for the TPU renderer.
+// framesink — native frame consumer for the renderer.
 //
-// TPU-native equivalent of the reference's ScreenRecorder
+// Equivalent of the reference's ScreenRecorder
 // (reference: src/main.cpp:29-124): the reference glReadPixels's each frame
 // on the render thread and fwrite's it into a popen'd FFmpeg pipe, stalling
 // the GPU loop on encoder hiccups. Here the render loop (Python/JAX) hands
 // device-fetched RGBA frames to this library, which copies them into a
 // fixed-size ring buffer and drains them on a dedicated writer thread —
-// the TPU keeps rendering while H.264 encoding happens elsewhere.
+// the device keeps rendering while H.264 encoding happens elsewhere.
 //
 // Sinks: mode 0 pipes raw RGBA into a command (FFmpeg, reference command
 // line semantics per main.cpp:60-74); mode 1 writes (truncates) a raw

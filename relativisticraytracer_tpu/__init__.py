@@ -1,4 +1,4 @@
-"""relativisticraytracer_tpu — a TPU-native relativistic black-hole renderer.
+"""relativisticraytracer_tpu — a relativistic black-hole renderer in JAX.
 
 A ground-up JAX/XLA/Pallas re-design of the capabilities of
 levi2234/RelativisticRayTracer (CUDA + OpenGL):
@@ -14,13 +14,14 @@ levi2234/RelativisticRayTracer (CUDA + OpenGL):
     simulation clock,
   * frame streaming to an FFmpeg H.264 encoder (native C++ frame sink).
 
-Design stance (TPU-first, see SURVEY.md §7): a frame is ONE pure jitted
-function `render(scene, camera, effects, time, skybox) -> uint8[H, W, 4]`.
-Vectors are structure-of-arrays (separate x/y/z planes, never a minor
-dim of 3), the march loop is a `lax.scan`/`lax.while_loop` with per-ray
-active masks replacing CUDA thread divergence, and the fused march step is
-also available as a Pallas TPU kernel with per-tile early exit.
-Multi-chip scaling is pure output-partitioned image tiling over a
+Design stance (see SURVEY.md §7): a frame is ONE pure jitted function
+`render(scene, camera, effects, time, skybox) -> uint8[H, W, 4]`. Vectors
+are structure-of-arrays (separate x/y/z planes, never a minor dim of 3).
+On an NVIDIA GPU the march runs as one Pallas kernel on the Triton route
+with per-block early exit and block-divergent media shading
+(ops/pallas_march.py); elsewhere it is a `lax.while_loop` with per-ray
+active masks replacing CUDA thread divergence, the plain reference path.
+Multi-card scaling is pure output-partitioned image tiling over a
 `jax.sharding.Mesh` (zero collectives per frame).
 """
 

@@ -13,8 +13,9 @@ import sys
 
 
 # Resolution presets: reference step budget everywhere, only the pixel
-# count changes. Throughputs measured on one TPU v5e chip, full scene
-# (docs/config_ladder.json; 480x272 animation runs at ~30 fps).
+# count changes. Full-scene frame times through the GPU kernel on one
+# H100 80GB HBM3 at a 700 W power limit, 2000-step cap: cinema 28.2 ms,
+# preview 13.2 ms, native 15.8 ms, realtime 10.4 ms (PERF.md).
 PRESETS = {
     "cinema": (1920, 1080),
     "preview": (960, 540),
@@ -22,12 +23,13 @@ PRESETS = {
     "realtime": (480, 272),
 }
 
-# Measured-interactive motion step cap per preset (1x v5e; README table):
-# while flying, the session marches with this cap and snaps back to full
-# quality when you stop. Explicit --motion-steps always wins.
+# Motion step cap per preset: while flying, the session marches with this
+# cap and snaps back to full quality when you stop. Explicit
+# --motion-steps always wins. On the H100 above both presets already run
+# above 30 fps at full quality, so the caps only add headroom.
 PRESET_MOTION_STEPS = {
-    "native": 400,      # ~32 ms/frame in motion (~30 fps), ~84 ms full
-    "realtime": 600,    # ~27 ms/frame full quality already; 600 keeps slack
+    "native": 400,      # 6.6 ms/frame in motion, 15.8 ms full quality
+    "realtime": 600,    # 5.8 ms/frame in motion, 10.4 ms full quality
 }
 
 
@@ -62,8 +64,7 @@ def _add_render_args(p):
     p.add_argument("--preset", choices=sorted(PRESETS), default=None,
                    help="resolution preset (cinema=1080p, preview=540p, "
                         "native=the reference's 1000x700 window, "
-                        "realtime=480x272 ~37fps on one v5e); explicit "
-                        "--width/--height win")
+                        "realtime=480x272); explicit --width/--height win")
     p.add_argument("--width", type=int, default=None,
                    help="default 1000 (config.h:7) or the preset's width")
     p.add_argument("--height", type=int, default=None,
@@ -75,12 +76,13 @@ def _add_render_args(p):
     p.add_argument("--no-effects", action="store_true")
     p.add_argument("--octave-cap", type=_positive_int, default=None,
                    help="cap every fbm/ridge octave count in the media "
-                        "noise, >= 1 (stylized preview; measured over the "
-                        "parity budget — see PERF.md precision trades)")
+                        "noise, >= 1 (stylized preview: any cap changes the "
+                        "image)")
     p.add_argument("--skybox", type=str, default=None,
                    help="equirect image path (procedural starfield if omitted)")
     p.add_argument("--loop", default=None, choices=["while", "scan", "pallas"],
-                   help="march strategy (default: pallas on TPU, while otherwise)")
+                   help="march strategy (default: the Pallas-Triton kernel "
+                        "on a GPU, while otherwise; pallas needs a GPU)")
     p.add_argument("--time", type=float, default=1.0)
 
 
@@ -173,17 +175,17 @@ def cmd_interactive(args):
 
     import pathlib
 
-    # Honest-by-default interactivity: the reference's windowed loop IS
-    # real-time at its default (main.cpp:482-539); on one chip the full
-    # 1000x700/2000-step scene is not. Unless the user picked a size or
-    # preset explicitly, drop the SESSION to the measured-interactive
-    # preset (realtime, 480x272) with motion-adaptive stepping; stills and
-    # animation keep the reference default. README's fps-per-preset table
-    # has the measurements.
+    # The reference's windowed loop is real-time at its default
+    # (main.cpp:482-539). Unless the user picked a size or preset
+    # explicitly, the SESSION takes the smallest preset (realtime, 480x272)
+    # with motion-adaptive stepping, so it stays interactive on the XLA
+    # `while` path too; stills and animation keep the reference default.
+    # On an H100 every preset runs above 30 fps through the kernel
+    # (README's per-preset table).
     if args.preset is None and args.width is None and args.height is None:
         args.preset = "realtime"  # _build_renderer resolves the resolution
     if args.motion_steps is None:
-        # measured-interactive default for the chosen preset
+        # the chosen preset's motion step cap
         args.motion_steps = PRESET_MOTION_STEPS.get(args.preset, 0)
 
     renderer = _build_renderer(args)
@@ -196,7 +198,7 @@ def cmd_interactive(args):
         import dataclasses
 
         # Same scene/resolution, reduced step cap — and the SAME device
-        # skybox (no duplicate HBM upload or starfield regeneration).
+        # skybox (no duplicate device upload or starfield regeneration).
         motion_r = Renderer(
             renderer.scene,
             dataclasses.replace(renderer.settings,
@@ -242,35 +244,11 @@ def cmd_paths(_args):
         print(f"[{i}] {p.name}: {len(p.keyframes)} keyframes, {dur:.0f}s")
 
 
-def _enable_compile_cache():
-    """Persistent XLA compilation cache: every CLI invocation is a fresh
-    process, and the fused kernel's first compile is 40-90 s on a TPU —
-    cached, repeat launches of the same config start in seconds. The
-    reference pays this cost once at BUILD time (nvcc); the cache is the
-    JIT-world equivalent. Opt out with RRT_TPU_COMPILE_CACHE=0."""
-    import os
-
-    cache_dir = os.environ.get(
-        "RRT_TPU_COMPILE_CACHE",
-        os.path.join(os.path.expanduser("~"), ".cache",
-                     "relativisticraytracer_tpu", "xla"),
-    )
-    if cache_dir in ("", "0"):
-        return
-    try:
-        import jax
-
-        jax.config.update("jax_compilation_cache_dir", cache_dir)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    except Exception as e:  # noqa: BLE001 — cache is an optimization only
-        logging.getLogger("relativisticraytracer_tpu").debug(
-            "compilation cache unavailable: %s", e
-        )
-
-
 def main(argv=None):
+    from relativisticraytracer_tpu.compile_cache import enable_compile_cache
+
     logging.basicConfig(level=logging.INFO, format="%(message)s")
-    _enable_compile_cache()
+    enable_compile_cache()
     ap = argparse.ArgumentParser(prog="relativisticraytracer_tpu")
     sub = ap.add_subparsers(dest="cmd", required=True)
 

@@ -21,6 +21,7 @@ from typing import Optional, Tuple
 
 import jax
 import jax.numpy as jnp
+import numpy as np
 
 # Window defaults (reference: include/config.h:7-9)
 WINDOW_WIDTH = 1000
@@ -81,10 +82,9 @@ class SceneConfig:
     enable_clouds: bool = True
 
     # --- quality knob: cap every fbm/ridge octave count in the media noise
-    # stack (None = the reference's exact counts). The sanctioned
-    # precision-for-speed axis inside the RMSE < 1e-3 parity budget
-    # (BASELINE.json) — measured ms/RMSE per cap in
-    # docs/precision_trades.json; None is bitwise reference semantics. ---
+    # stack (None = the reference's exact counts, bitwise reference
+    # semantics). A stylized-preview knob: any cap changes the image, and
+    # its cost/RMSE trade on the GPU is not measured. ---
     noise_octave_cap: Optional[int] = None
 
     def __post_init__(self):
@@ -113,6 +113,11 @@ DEFAULT_SCENE = SceneConfig()
 
 # Kerr a=0.9 variant used by the BASELINE config ladder (BASELINE.json configs[1]).
 KERR_SCENE = dataclasses.replace(DEFAULT_SCENE, spin_a=0.9)
+
+
+def _platform() -> str:
+    """JAX's default device platform ("gpu", "cpu", ...)."""
+    return jax.devices()[0].platform
 
 
 def _register_dataclass(cls, data_fields, meta_fields):
@@ -156,7 +161,11 @@ class CameraEffects:
             value = getattr(self, name)
             if value is None:
                 value = default
-            object.__setattr__(self, name, jnp.asarray(value, dtype=jnp.float32))
+            # Leave non-array leaves alone: pytree unflattening also builds
+            # this class from placeholders (e.g. `jit(...).lower`'s ArgInfo).
+            if isinstance(value, (int, float, np.ndarray, np.generic, jax.Array)):
+                value = jnp.asarray(value, dtype=jnp.float32)
+            object.__setattr__(self, name, value)
 
     def replace(self, **kwargs) -> "CameraEffects":
         return dataclasses.replace(self, **kwargs)
@@ -189,72 +198,40 @@ class RenderSettings:
     # (config.h:48) — one source of truth; setting BOTH SceneConfig and
     # RenderSettings used to be required and silently diverged otherwise.
     max_steps: Optional[int] = None
-    # March loop strategy: "auto" (pallas on TPU, while elsewhere), "scan"
-    # (fixed trip count, differentiable-friendly), "while" (chunked scan +
-    # all-rays-done early exit), or "pallas" (fused Pallas TPU kernel with
-    # per-tile early exit — the fast path).
+    # March loop strategy: "auto" (the GPU kernel on a GPU, while
+    # elsewhere), "scan" (fixed trip count, differentiable-friendly),
+    # "while" (chunked scan + all-rays-done early exit), or "pallas" (the
+    # fused Pallas-Triton march kernel with per-block early exit,
+    # ops/pallas_march.py; GPU only).
     loop: str = "auto"
     chunk: int = 64                # steps per chunk for loop="while"
     # Supersampling AA factor (beyond the reference, which renders 1 ray per
     # pixel): rays are traced on an (s*H, s*W) grid and box-filtered after
     # tone mapping. 1 = reference behavior.
     supersample: int = 1
-    # Media scheduling on the Pallas path: "inline" shades under whole-tile
-    # conds inside the march (round-2 kernel); "compact" records media
-    # segments during a vacuum-cost march and replays ONLY those segments in
-    # a dense second pass (ops/pallas_compact.py) — bitwise-equal output
-    # (chip-gated, tools/chip_parity_compact.py) at ~200 vs 258 ms for the
-    # 1080p headline frame. Ignored off the pallas path.
-    media_pass: str = "compact"
-    # Exactly-tracked media segments per ray on the compact path; later
-    # crossings merge into the last slot (replayed with harmless gap steps).
-    media_slots: int = 3
-    # Replay layout on the compact path. True (default): row-compact the
-    # media rays into a `media_capacity`-lane buffer sorted by replay
-    # length so tiles are length-uniform
-    # (ops/pallas_compact.media_replay_sorted; bitwise-equal, falls back
-    # to the image layout under one lax.cond when a pose has more media
-    # rows than media_capacity/128). False: replay in image layout.
-    # Measured at the 1080p headline pose: 215.1 -> 199.8 ms/frame
-    # (docs/bench_replay_sorted.json).
-    media_sort: bool = True
-    media_capacity: int = 1 << 17
-    # Sky background fetch on the compact Pallas path: "windowed"
-    # (default) = per-sub-tile sky-window DMA + MXU one-hot quad fetch
-    # with the row-gather compacted onto incoherent sub-tiles
-    # (ops/pallas_sky.py); "rows" = the plain q4 row-gather (one XLA
-    # gathered slice per lane). Measured on chip at 1080p
-    # (docs/sky_window.json full_frame, round 5): windowed is BITWISE the
-    # rows frame and faster at all three census poses — headline
-    # 182.9 -> 169.7 ms/frame (stage 31.0 -> 17.4 ms). Ignored off the
-    # compact path.
-    sky_gather: str = "windowed"
 
     def __post_init__(self):
-        # A typo like media_pass="Compact" would otherwise silently select
-        # the inline kernel (~30% slower) with no error; media_slots < 1
-        # only fails much later as an opaque IndexError in the replay.
-        if self.media_pass not in ("compact", "inline"):
+        # A typo would otherwise surface only at trace time, deep inside
+        # the march, as "unknown loop strategy".
+        if self.loop not in ("auto", "scan", "while", "pallas"):
             raise ValueError(
-                f"media_pass must be 'compact' or 'inline', got "
-                f"{self.media_pass!r}"
-            )
-        if self.media_slots < 1:
-            raise ValueError(
-                f"media_slots must be >= 1, got {self.media_slots}"
-            )
-        if self.sky_gather not in ("rows", "windowed"):
-            raise ValueError(
-                f"sky_gather must be 'rows' or 'windowed', got "
-                f"{self.sky_gather!r}"
+                f"loop must be 'auto', 'scan', 'while' or 'pallas', got "
+                f"{self.loop!r}"
             )
 
     def resolved_loop(self) -> str:
+        """The march strategy this process runs. "pallas" needs a GPU:
+        anywhere else it raises instead of falling back to the
+        interpreter or another loop."""
+        platform = _platform()
+        if self.loop == "pallas" and platform != "gpu":
+            raise ValueError(
+                f"loop='pallas' is the GPU march kernel, but JAX's backend "
+                f"here is {platform!r}; use loop='while' (or 'auto')"
+            )
         if self.loop != "auto":
             return self.loop
-        import jax
-
-        return "pallas" if jax.devices()[0].platform == "tpu" else "while"
+        return "pallas" if platform == "gpu" else "while"
 
     def resolved_max_steps(self, scene: SceneConfig) -> int:
         """The march step cap: this override if set, else the scene's."""

@@ -1,9 +1,9 @@
-"""Transcendentals that Mosaic (Pallas TPU) does not provide natively.
+"""Polynomial atan2/asin for the sky lookup.
 
-`atan2` is a minimax-polynomial implementation (measured max abs error
-2.4e-7 in float32, ~2 ulp of atan2f) built only from mul/add/div/select, so
-the same code lowers inside Pallas kernels and in plain XLA. The march uses
-it in BOTH paths, keeping the Pallas and XLA renders bit-identical.
+`atan2` is a minimax-polynomial implementation (max abs error 2.4e-7 in
+float32, ~2 ulp of atan2f) built only from mul/add/div/select, so the same
+code lowers inside Pallas kernels and in plain XLA. The golden images
+(tests/goldens/) embed its exact values, so it stays the one definition.
 
 Signed-zero caveat: y = -0.0 is treated as non-negative (jnp comparisons do
 not distinguish +/-0), so atan2(-0.0, x<0) returns +pi where libm returns

@@ -6,7 +6,7 @@ The sequential component updates in `hash33` are order-dependent and kept
 verbatim. These functions drive the accretion-disk / dust-cloud structure,
 so bit-level fidelity here is what bounds the golden-image RMSE budget.
 
-All functions take SoA `Vec3` inputs of any shape and are pure VPU
+All functions take SoA `Vec3` inputs of any shape and are pure
 elementwise pipelines (no gathers, no transcendentals beyond floor/abs),
 safe to inline into Pallas kernel bodies.
 """

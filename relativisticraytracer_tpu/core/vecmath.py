@@ -1,10 +1,10 @@
 """Structure-of-arrays 3-vector math (reference: include/math_utils.h:11-61).
 
-TPU-first representation: a `Vec3` is a NamedTuple of three same-shaped
-float32 arrays (x, y, z planes). A packed `[..., 3]` layout would put 3 on
-the 128-lane minor dimension and waste >97% of each vector register; SoA
-keeps every op a full-width VPU op and reuses verbatim inside Pallas
-kernel bodies.
+Structure-of-arrays representation: a `Vec3` is a NamedTuple of three
+same-shaped float32 arrays (x, y, z planes). Every op is a full-width
+elementwise op on planes (coalesced in device memory, one register per
+component per ray inside a kernel), and the same code runs verbatim inside
+Pallas kernel bodies.
 
 All functions mirror the reference device helpers exactly (same guards,
 same operation order) — they are the parity bedrock.

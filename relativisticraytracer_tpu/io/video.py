@@ -7,7 +7,7 @@ fast, CRF 18, yuv420p — EXCEPT `-vf vflip`, which the reference needs only
 because glReadPixels returns bottom-up rows; our frames are already
 top-down (see render/camera.py orientation note).
 
-When no `ffmpeg` binary exists (e.g. this TPU image), frames are written to
+When no `ffmpeg` binary exists, frames are written to
 a raw `.rgba` file next to a `.json` sidecar containing the exact FFmpeg
 command that finishes the job elsewhere.
 """

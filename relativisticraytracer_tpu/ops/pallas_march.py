@@ -1,27 +1,27 @@
-"""Fused Pallas TPU march kernel with per-tile early exit.
+"""The geodesic march as one Pallas kernel on the Triton route (NVIDIA GPU).
 
-The monolithic XLA march (render/march.py) runs the whole image in lock
-step: every ray pays for the slowest ray in the FRAME (up to the 2000-step
-cap near the photon sphere) and the media shading runs whenever ANY ray in
-the frame is inside a zone. This kernel restores the reference GPU's
-block-level scheduling (reference: 16x16 CUDA blocks, src/raymarcher.cu:177)
-the TPU way:
+The XLA `while` march (render/march.py) runs the frame in lock step: every
+ray is stepped until the slowest ray in the FRAME stops (up to the
+2000-step cap near the photon sphere), the ray state crosses device memory
+every step, and the media noise is evaluated for every ray on every step.
+The reference CUDA kernel has none of these costs (16x16 thread blocks,
+per-thread `break`, a divergent media branch; src/raymarcher.cu:41-121,
+176-180). This kernel gets them back on the card:
 
-  * the frame is a Pallas grid of (BH, BW) pixel tiles, processed
-    sequentially per core (parallel across cores where available);
-  * each tile runs its own `lax.while_loop` and EXITS as soon as all of its
-    rays are captured/escaped — far-field tiles finish in a few hundred
-    steps while photon-ring tiles run to the cap;
-  * per step, the radiative-transfer block runs under a `lax.cond` on
-    "any ray in this tile is inside a media zone" — vacuum tiles march at
-    pure-RK4 cost (the march body itself is the SAME `march_step` used by
-    the XLA path, so parity is structural, and is covered by the
-    pallas==while bitwise test).
+  * each program owns a small power-of-two (BLOCK_H, BLOCK_W) block of
+    pixels and generates its rays in-kernel from the camera scalars (a
+    small input array the program loads itself) and its pixel coordinates
+    plus a pixel offset — so a shard of a multi-card frame runs the same
+    kernel (parallel/sharding.py);
+  * the block's state lives in registers through its own `lax.while_loop`,
+    which exits when every ray of the block is captured or escaped;
+  * media shading sits under the block-wide `lax.cond` of
+    `march_step(media_cond=True)`, so a block pays for the noise only when
+    one of its rays may be lit. With one warp per block this is the
+    reference's warp-level divergence.
 
-Ray generation also happens inside the kernel (the camera basis rides in as
-SMEM scalars; pixel coordinates come from the grid index), so no ray planes
-ever touch HBM; skybox gather, post FX, tone map and packing remain fused
-XLA ops around the kernel.
+The body is the SAME `march_step` the XLA path runs. The sky gather, post
+FX and pack stay in XLA around the kernel (render/pipeline.frame_epilogue).
 """
 
 from __future__ import annotations
@@ -32,7 +32,7 @@ from typing import Optional, Tuple
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as pl_triton
 
 from relativisticraytracer_tpu.config import (
     CameraEffects,
@@ -40,40 +40,38 @@ from relativisticraytracer_tpu.config import (
     SceneConfig,
 )
 from relativisticraytracer_tpu.core.utils import largest_divisor_at_most
-from relativisticraytracer_tpu.core.vecmath import Vec3, normalize
-from relativisticraytracer_tpu.render.march import MarchState, march_step
-from relativisticraytracer_tpu.render.postfx import (
-    apply_effects_and_tonemap,
-    apply_lens_distortion,
-    downsample_box,
-    pack_rgba8,
-    pack_rgba8_word,
-    word_to_rgba8,
-)
-from relativisticraytracer_tpu.render.skybox import (
-    Skybox,
-    gather_sky_coords,
-    sky_coords,
+from relativisticraytracer_tpu.core.vecmath import Vec3
+from relativisticraytracer_tpu.render.camera import pixel_grid, primary_rays
+from relativisticraytracer_tpu.render.march import (
+    MarchState,
+    block_any,
+    init_state,
+    march_step,
 )
 
-# Default IMAGE-SPACE block: each kernel invocation owns a compact
-# (BLOCK_H, BLOCK_W) pixel rectangle, laid out as a (BLOCK_H*BLOCK_W/128,
-# 128) lane tile via a cheap reshape/transpose outside the kernel. Compact
-# blocks terminate coherently (all rays see similar geometry), unlike raw
-# 128-wide row slivers; >=32KB lane tiles hit a VMEM-spill cliff inside the
-# while body. Defaults from a 1080p sweep on a v5e chip.
-BLOCK_H = 32
-BLOCK_W = 128
+# Pixels per program (powers of two, as Triton requires) and warps per
+# program: one ray per thread. Chosen by the block/warp/unroll sweep on
+# the H100 (PERF.md "Block sweep"; tools/sweep_march.py).
+BLOCK_H = 8
+BLOCK_W = 8
+NUM_WARPS = 2
+# March steps per while-loop trip. Finished rays are masked no-ops, so
+# overshooting the all-done point by fewer than UNROLL steps is exact.
+# Snapped to a divisor of the step cap. Unrolling bought no speed on the
+# card and doubles Triton's compile time per step of unroll.
+UNROLL = 1
+
+# Camera ABI: [time, pos(3), forward(3), right(3), up(3), use_lens_distortion,
+# distortion_amount, x0, y0], padded to a power of two for Triton.
+_N_SCALARS = 17
+_SCALARS_PADDED = 32
 
 
-def pack_camera_scalars(camera, effects: CameraEffects, time,
-                        with_ca: bool = True):
-    """The SMEM camera ABI: [time, pos(3), forward(3), right(3), up(3),
-    use_lens_distortion, distortion_amount (, ca_eff)] — 15 scalars, 16
-    with the chromatic-aberration offset. ONE definition shared by every
-    in-kernel-ray-gen launcher (inline sky, record pass): the kernels read
-    these by index, so adding a scalar here must be paired with updating
-    each kernel's scal_ref index map."""
+def camera_scalars(camera, effects: CameraEffects, time,
+                   offset=(0.0, 0.0)) -> jnp.ndarray:
+    """Pack the kernel's scalar inputs (see the ABI above) into one f32
+    array. `offset` is the (x0, y0) pixel of the launch's top-left ray in
+    the full image; traced scalars are fine."""
     parts = [
         jnp.asarray(time, jnp.float32).reshape(1),
         jnp.asarray(camera.pos, jnp.float32).reshape(3),
@@ -82,673 +80,148 @@ def pack_camera_scalars(camera, effects: CameraEffects, time,
         jnp.asarray(camera.up, jnp.float32).reshape(3),
         jnp.asarray(effects.use_lens_distortion, jnp.float32).reshape(1),
         jnp.asarray(effects.distortion_amount, jnp.float32).reshape(1),
+        jnp.asarray(offset[0], jnp.float32).reshape(1),
+        jnp.asarray(offset[1], jnp.float32).reshape(1),
     ]
-    if with_ca:
-        # Effective CA offset: 0.0 while the effect is off — then all three
-        # channel coordinate sets are bitwise the G set
-        # (raymarcher.cu:131-145).
-        ca_eff = jnp.where(
-            effects.use_chromatic_aberration > 0.5,
-            effects.ca_amount, jnp.float32(0.0),
-        )
-        parts.append(jnp.asarray(ca_eff, jnp.float32).reshape(1))
-    return jnp.concatenate(parts)
-
-UNROLL = 8
-# Media-cond granularity (lane rows per independent sub-group). Whole-tile
-# (0) won both sweeps: the round-1 tuple-of-states grouping spilled VMEM,
-# and the carry-preserving slice-wise conds (march_step media_group_rows)
-# also lose on chip despite executing fewer media lane-steps — 230.2 ms
-# whole-tile vs 427.8 (groups=8) / 284.0 (groups=16) for the 1080p kernel;
-# the per-slice cond dispatch costs more than the 3.3x->2.6x lane-step
-# saving is worth (docs/media_fire.json).
-GROUP_ROWS = 0
+    scal = jnp.concatenate(parts)
+    return jnp.pad(scal, (0, _SCALARS_PADDED - _N_SCALARS))
 
 
-def _march_tile_loop(scene: SceneConfig, max_steps: int, unroll: int,
-                     group_rows: int, t, make_state):
-    """Shared tile march loop: builds the tile state via `make_state()`,
-    runs the early-exit while loop, and returns the final MarchState.
+def _march_kernel(scene: SceneConfig, max_steps: int, unroll: int,
+                  img_w: int, img_h: int, block_h: int, block_w: int,
+                  scal_ref, ix_ref, iy_ref, iz_ref, tr_ref, hit_ref,
+                  vx_ref, vy_ref, vz_ref):
+    s = [scal_ref[k] for k in range(_N_SCALARS)]
+    t = s[0]
+    cam_pos = s[1:4]
+    x0, y0 = s[15], s[16]
 
-    group_rows=N runs the media skip conds at N-lane-row granularity INSIDE
-    march_step (slice-wise, carry-preserving — see march_step's
-    media_group_rows): a tile that clips the disk band only shades the rows
-    that might touch it. The while carry stays one tile state either way;
-    the earlier tuple-of-states grouping multiplied the carry and spilled
-    VMEM."""
-    state = make_state()
-
-    # Mosaic cannot carry i1 vectors through scf.while — ship the masks as
-    # f32 0/1 planes across loop iterations and rebuild bools inside.
-    def pack_one(st):
-        return (st.p, st.v, st.intensity, st.transmittance,
-                st.hit_horizon.astype(jnp.float32), st.active.astype(jnp.float32))
-
-    def unpack_one(c):
-        p, v, inten, trans, hit_f, act_f = c
-        return MarchState(p, v, inten, trans, hit_f > 0.5, act_f > 0.5)
+    shape = (block_h, block_w)
+    row = pl.program_id(0) * block_h + jax.lax.broadcasted_iota(jnp.int32, shape, 0)
+    col = pl.program_id(1) * block_w + jax.lax.broadcasted_iota(jnp.int32, shape, 1)
+    px = col.astype(jnp.float32) + x0
+    py = row.astype(jnp.float32) + y0
+    rd, _, _ = primary_rays(px, py, img_w, img_h, s[4:7], s[7:10], s[10:13],
+                            s[13], s[14])
+    zeros = jnp.zeros(shape, jnp.float32)
+    state = init_state(
+        Vec3(zeros + cam_pos[0], zeros + cam_pos[1], zeros + cam_pos[2]), rd)
 
     def cond(carry):
-        i, c = carry
-        return jnp.logical_and(i < max_steps, jnp.any(c[5] > 0.5))
+        i, st = carry
+        return jnp.logical_and(i < max_steps, block_any(st.active))
 
     def body(carry):
-        i, c = carry
-        st = unpack_one(c)
-        # Unrolled steps amortize the exit check; finished rays are masked
-        # no-ops, so overshooting the all-done point by <unroll steps is
-        # exact. `unroll` divides max_steps (enforced by the wrapper).
+        i, st = carry
         for _ in range(unroll):
-            st = march_step(scene, st, t, media_cond=True,
-                            media_group_rows=group_rows)
-        return i + unroll, pack_one(st)
+            st = march_step(scene, st, t, media_cond=True)
+        return i + unroll, st
 
-    _, carry = jax.lax.while_loop(
-        cond, body, (jnp.int32(0), pack_one(state))
-    )
-    return unpack_one(carry)
-
-
-def _run_march_loop(scene: SceneConfig, max_steps: int, unroll: int,
-                    group_rows: int, t, make_state,
-                    ir_ref, ig_ref, ib_ref, tr_ref, hit_ref,
-                    vx_ref, vy_ref, vz_ref):
-    """March the tile and write the raw state planes (plane-output kernels)."""
-    state = _march_tile_loop(scene, max_steps, unroll, group_rows,
-                             t, make_state)
-    ir_ref[...] = state.intensity.x
-    ig_ref[...] = state.intensity.y
-    ib_ref[...] = state.intensity.z
-    tr_ref[...] = state.transmittance
-    hit_ref[...] = state.hit_horizon.astype(jnp.float32)
-    vx_ref[...] = state.v.x
-    vy_ref[...] = state.v.y
-    vz_ref[...] = state.v.z
-
-
-def _march_tile_kernel(scene: SceneConfig, max_steps: int, unroll: int,
-                       group_rows: int,
-                       time_ref,
-                       ox_ref, oy_ref, oz_ref, dx_ref, dy_ref, dz_ref,
-                       ir_ref, ig_ref, ib_ref, tr_ref, hit_ref,
-                       vx_ref, vy_ref, vz_ref):
-    """Plane-input kernel: rays supplied as (H, W)-derived lane tiles."""
-    t = time_ref[0]
-
-    def make_state():
-        zeros = jnp.zeros_like(ox_ref[...])
-        return MarchState(
-            p=Vec3(ox_ref[...], oy_ref[...], oz_ref[...]),
-            v=Vec3(dx_ref[...], dy_ref[...], dz_ref[...]),
-            intensity=Vec3(zeros, zeros, zeros),
-            transmittance=jnp.ones_like(zeros),
-            hit_horizon=jnp.zeros_like(zeros, dtype=bool),
-            active=jnp.ones_like(zeros, dtype=bool),
-        )
-
-    _run_march_loop(scene, max_steps, unroll, group_rows, t, make_state,
-                    ir_ref, ig_ref, ib_ref, tr_ref, hit_ref,
-                    vx_ref, vy_ref, vz_ref)
-
-
-def _gen_tile_rays(scal_ref, width: int, height: int,
-                   block_h: int, block_w: int, nbx: int,
-                   origin_idx: Optional[int] = None,
-                   strips: Optional[Tuple[int, int]] = None,
-                   cstrips: Optional[Tuple[int, int]] = None):
-    """In-kernel primary-ray generation from the camera basis (SMEM scalars
-    [0..14] = time, pos, fwd, right, up, use_ld, ld_k) and the tile's pixel
-    coordinates. Semantics match render/camera.generate_rays exactly
-    (raymarcher.cu:20-34). Returns (t, cam_pos, rd).
-
-    `origin_idx`: when set, SMEM scalars [origin_idx, origin_idx+1] hold
-    the (x0, y0) GLOBAL pixel coordinates of this launch's top-left pixel
-    and `width`/`height` are the FULL image dims — the multi-chip tile
-    path, where each shard renders a sub-rectangle of the global frame.
-    Integer-valued f32 adds below 2^24 are exact, so shard rays are
-    bitwise the corresponding single-chip rays.
-
-    `strips=(sh, ystride)`: strip-interleaved shard assignment
-    (parallel/sharding.py) — local row r maps to global row
-    y0 + (r // sh) * ystride + r % sh, so a shard's rows are spread
-    across the frame in strips of `sh` instead of one contiguous band
-    (the photon-ring rows no longer concentrate on one chip). Static
-    ints; contiguous assignment is strips=None (ystride == sh would be
-    the identity). `cstrips=(sw, xstride)` is the column analog. Only
-    meaningful together with `origin_idx`."""
-    t = scal_ref[0]
-    cam_pos = (scal_ref[1], scal_ref[2], scal_ref[3])
-    fwd = (scal_ref[4], scal_ref[5], scal_ref[6])
-    right = (scal_ref[7], scal_ref[8], scal_ref[9])
-    up = (scal_ref[10], scal_ref[11], scal_ref[12])
-    use_ld = scal_ref[13]
-    ld_k = scal_ref[14]
-
-    i = pl.program_id(0)
-    by = i // nbx
-    bx = i % nbx
-    tile_rows = (block_h * block_w) // 128
-
-    lane = (
-        jax.lax.broadcasted_iota(jnp.int32, (tile_rows, 128), 0) * 128
-        + jax.lax.broadcasted_iota(jnp.int32, (tile_rows, 128), 1)
-    )
-    lx = bx * block_w + lane % block_w
-    ly = by * block_h + lane // block_w
-    if strips is not None:
-        sh, ystride = strips
-        ly = (ly // sh) * ystride + ly % sh
-    if cstrips is not None:
-        sw, xstride = cstrips
-        lx = (lx // sw) * xstride + lx % sw
-    px = lx.astype(jnp.float32)
-    py = ly.astype(jnp.float32)
-    if origin_idx is not None:
-        px = px + scal_ref[origin_idx]
-        py = py + scal_ref[origin_idx + 1]
-
-    # division (not reciprocal-multiply) to match generate_rays bitwise
-    uv_x = px / jnp.float32(width)
-    uv_y = py / jnp.float32(height)
-    dx_uv, dy_uv = apply_lens_distortion(uv_x, uv_y, ld_k)
-    on = use_ld > 0.5
-    uv_x = jnp.where(on, dx_uv, uv_x)
-    uv_y = jnp.where(on, dy_uv, uv_y)
-
-    aspect = jnp.float32(width) / jnp.float32(height)
-    u = (uv_x * 2.0 - 1.0) * aspect
-    v = uv_y * 2.0 - 1.0
-    rd = normalize(
-        Vec3(
-            fwd[0] + u * right[0] + v * up[0],
-            fwd[1] + u * right[1] + v * up[1],
-            fwd[2] + u * right[2] + v * up[2],
-        )
-    )
-    return t, cam_pos, rd
-
-
-def _march_camera_kernel(scene: SceneConfig, max_steps: int, unroll: int,
-                         group_rows: int, width: int, height: int,
-                         block_h: int, block_w: int, nbx: int,
-                         scal_ref,
-                         ir_ref, ig_ref, ib_ref, tr_ref, hit_ref,
-                         vx_ref, vy_ref, vz_ref):
-    """Fully fused kernel: primary rays are GENERATED in-kernel from the
-    camera basis (15 SMEM scalars) and the tile's pixel coordinates —
-    no ray planes ever touch HBM."""
-    t, cam_pos, rd = _gen_tile_rays(scal_ref, width, height,
-                                    block_h, block_w, nbx)
-
-    def make_state():
-        zeros = jnp.zeros_like(rd.x)
-        return MarchState(
-            p=Vec3(zeros + cam_pos[0], zeros + cam_pos[1], zeros + cam_pos[2]),
-            v=Vec3(rd.x, rd.y, rd.z),
-            intensity=Vec3(zeros, zeros, zeros),
-            transmittance=jnp.ones_like(zeros),
-            hit_horizon=jnp.zeros_like(zeros, dtype=bool),
-            active=jnp.ones_like(zeros, dtype=bool),
-        )
-
-    _run_march_loop(scene, max_steps, unroll, group_rows, t, make_state,
-                    ir_ref, ig_ref, ib_ref, tr_ref, hit_ref,
-                    vx_ref, vy_ref, vz_ref)
+    _, st = jax.lax.while_loop(cond, body, (jnp.int32(0), state))
+    ix_ref[...] = st.intensity.x
+    iy_ref[...] = st.intensity.y
+    iz_ref[...] = st.intensity.z
+    tr_ref[...] = st.transmittance
+    hit_ref[...] = st.hit_horizon.astype(jnp.float32)
+    vx_ref[...] = st.v.x
+    vy_ref[...] = st.v.y
+    vz_ref[...] = st.v.z
 
 
 def _round_up(x: int, m: int) -> int:
     return (x + m - 1) // m * m
 
 
-def _to_lane_tiles(a, bh: int, bw: int):
-    """(H, W) plane -> (num_blocks * bh*bw/128, 128) lane layout where each
-    consecutive group of bh*bw/128 rows is one compact image block. Pure
-    reshape/transpose (fast HBM copies, no gathers)."""
-    h, w = a.shape
-    blocks = a.reshape(h // bh, bh, w // bw, bw).transpose(0, 2, 1, 3)
-    return blocks.reshape(-1, 128)
-
-
-def _from_lane_tiles(a, h: int, w: int, bh: int, bw: int):
-    blocks = a.reshape(h // bh, w // bw, bh, bw)
-    return blocks.transpose(0, 2, 1, 3).reshape(h, w)
-
-
 @functools.partial(
     jax.jit,
     static_argnames=(
-        "scene", "max_steps", "block_h", "block_w", "unroll", "group_rows",
-        "interpret",
+        "scene", "width", "height", "max_steps", "image", "block",
+        "num_warps", "unroll", "interpret",
     ),
 )
 def march_pallas(
     scene: SceneConfig,
-    origin: Vec3,
-    direction: Vec3,
-    time,
-    max_steps: int,
-    block_h: int = BLOCK_H,
-    block_w: int = BLOCK_W,
-    unroll: int = UNROLL,
-    group_rows: int = GROUP_ROWS,
-    interpret: bool = False,
-):
-    """March all rays with the fused tile kernel.
-
-    origin/direction: (H, W) planes. Returns (intensity Vec3,
-    transmittance, hit_horizon bool, final velocity Vec3), each (H, W).
-    """
-    if (block_h * block_w) % 128:
-        raise ValueError("block_h*block_w must be a multiple of 128")
-    h, w = origin.x.shape
-    hp, wp = _round_up(h, block_h), _round_up(w, block_w)
-
-    def prep(a):
-        return _to_lane_tiles(
-            jnp.pad(a, ((0, hp - h), (0, wp - w)), mode="edge"), block_h, block_w
-        )
-
-    planes = [prep(a) for a in (origin.x, origin.y, origin.z,
-                                direction.x, direction.y, direction.z)]
-    time_arr = jnp.asarray([time], dtype=jnp.float32)
-
-    tile_rows = (block_h * block_w) // 128
-    num_blocks = (hp // block_h) * (wp // block_w)
-    tile_spec = pl.BlockSpec(
-        (tile_rows, 128), lambda i: (i, 0), memory_space=pltpu.VMEM
-    )
-    out_shape = jax.ShapeDtypeStruct((num_blocks * tile_rows, 128), jnp.float32)
-
-    unroll = largest_divisor_at_most(max_steps, unroll)
-    if group_rows:
-        # snap to a divisor: a non-divisor would leave tail rows unmarched
-        group_rows = largest_divisor_at_most(tile_rows, group_rows)
-    kernel = functools.partial(
-        _march_tile_kernel, scene, max_steps, unroll, group_rows
-    )
-
-    # Rough cost model: ~70% of rays escape after a few hundred vacuum steps,
-    # photon-ring tiles run to the cap. Informs XLA's scheduler only.
-    avg_steps = max(1, max_steps // 3)
-    cost = pl.CostEstimate(
-        flops=int(hp * wp) * avg_steps * 320,
-        bytes_accessed=int(hp * wp) * 4 * 14,
-        transcendentals=int(hp * wp) * avg_steps * 8,
-    )
-
-    outs = pl.pallas_call(
-        kernel,
-        grid=(num_blocks,),
-        in_specs=[
-            pl.BlockSpec(memory_space=pltpu.SMEM),  # time (1,)
-        ] + [tile_spec] * 6,
-        out_specs=[tile_spec] * 8,
-        out_shape=[out_shape] * 8,
-        compiler_params=pltpu.CompilerParams(
-            # Every tile writes only its own output block (no cross-tile
-            # carry), so the grid is legally parallel — on megacore parts
-            # (2 TensorCores/chip) Mosaic can split it across cores.
-            dimension_semantics=("parallel",),
-        ),
-        cost_estimate=cost,
-        interpret=interpret,
-    )(time_arr, *planes)
-
-    def post(a):
-        return _from_lane_tiles(a, hp, wp, block_h, block_w)[:h, :w]
-
-    ir, ig, ib, tr, hit, vx, vy, vz = [post(o) for o in outs]
-    return (
-        Vec3(ir, ig, ib),
-        tr,
-        hit > 0.5,
-        Vec3(vx, vy, vz),
-    )
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=(
-        "scene", "width", "height", "max_steps", "block_h", "block_w",
-        "unroll", "group_rows", "interpret",
-    ),
-)
-def march_pallas_camera(
-    scene: SceneConfig,
     camera,
     effects: CameraEffects,
     time,
     width: int,
     height: int,
     max_steps: int,
-    block_h: int = BLOCK_H,
-    block_w: int = BLOCK_W,
+    offset=(0.0, 0.0),
+    image: Optional[Tuple[int, int]] = None,
+    block: Tuple[int, int] = (BLOCK_H, BLOCK_W),
+    num_warps: int = NUM_WARPS,
     unroll: int = UNROLL,
-    group_rows: int = GROUP_ROWS,
     interpret: bool = False,
-):
-    """March the full frame with in-kernel ray generation: the camera basis
-    rides in as 15 SMEM scalars; ray planes never touch HBM. Same outputs
-    as march_pallas."""
-    if (block_h * block_w) % 128:
-        raise ValueError("block_h*block_w must be a multiple of 128")
+) -> MarchState:
+    """March the (height, width) tile whose top-left pixel is `offset` of
+    an `image` = (img_w, img_h) frame (default: the tile is the frame).
+
+    Returns the final MarchState of each ray as (height, width) planes;
+    `p` and `active` are not written back (None). `interpret=True` runs
+    the Pallas interpreter — for tests on a machine without a GPU."""
+    img_w, img_h = image if image is not None else (width, height)
+    block_h, block_w = block
+    for b in block:
+        if b < 1 or b & (b - 1):
+            raise ValueError(f"block dims must be powers of two, got {block}")
     hp, wp = _round_up(height, block_h), _round_up(width, block_w)
-    nby, nbx = hp // block_h, wp // block_w
-    num_blocks = nby * nbx
-    tile_rows = (block_h * block_w) // 128
-
-    scal = pack_camera_scalars(camera, effects, time, with_ca=False)
-
-    tile_spec = pl.BlockSpec(
-        (tile_rows, 128), lambda i: (i, 0), memory_space=pltpu.VMEM
-    )
-    out_shape = jax.ShapeDtypeStruct((num_blocks * tile_rows, 128), jnp.float32)
-
     unroll = largest_divisor_at_most(max_steps, unroll)
-    if group_rows:
-        group_rows = largest_divisor_at_most(tile_rows, group_rows)
     kernel = functools.partial(
-        _march_camera_kernel, scene, max_steps, unroll, group_rows,
-        width, height, block_h, block_w, nbx,
+        _march_kernel, scene, max_steps, unroll, img_w, img_h,
+        block_h, block_w,
     )
-    avg_steps = max(1, max_steps // 3)
-    cost = pl.CostEstimate(
-        flops=int(hp * wp) * avg_steps * 320,
-        bytes_accessed=int(hp * wp) * 4 * 8,
-        transcendentals=int(hp * wp) * avg_steps * 8,
-    )
-
+    plane = pl.BlockSpec((block_h, block_w), lambda i, j: (i, j))
     outs = pl.pallas_call(
         kernel,
-        grid=(num_blocks,),
-        in_specs=[pl.BlockSpec(memory_space=pltpu.SMEM)],  # scalars (15,)
-        out_specs=[tile_spec] * 8,
-        out_shape=[out_shape] * 8,
-        compiler_params=pltpu.CompilerParams(
-            # Every tile writes only its own output block (no cross-tile
-            # carry), so the grid is legally parallel — on megacore parts
-            # (2 TensorCores/chip) Mosaic can split it across cores.
-            dimension_semantics=("parallel",),
-        ),
-        cost_estimate=cost,
+        grid=(hp // block_h, wp // block_w),
+        in_specs=[pl.BlockSpec((_SCALARS_PADDED,), lambda i, j: (0,))],
+        out_specs=[plane] * 8,
+        out_shape=[jax.ShapeDtypeStruct((hp, wp), jnp.float32)] * 8,
+        backend="triton",
+        compiler_params=pl_triton.CompilerParams(
+            num_warps=num_warps, num_stages=1),
         interpret=interpret,
-    )(scal)
-
-    def post(a):
-        return _from_lane_tiles(a, hp, wp, block_h, block_w)[:height, :width]
-
-    ir, ig, ib, tr, hit, vx, vy, vz = [post(o) for o in outs]
-    return (
-        Vec3(ir, ig, ib),
-        tr,
-        hit > 0.5,
-        Vec3(vx, vy, vz),
+        name="rrt_march",
+    )(camera_scalars(camera, effects, time, offset))
+    ix, iy, iz, tr, hit, vx, vy, vz = [o[:height, :width] for o in outs]
+    return MarchState(
+        p=None, v=Vec3(vx, vy, vz), intensity=Vec3(ix, iy, iz),
+        transmittance=tr, hit_horizon=hit > 0.5, active=None,
     )
 
 
-def _march_camera_sky_kernel(scene: SceneConfig, max_steps: int, unroll: int,
-                             group_rows: int, width: int, height: int,
-                             block_h: int, block_w: int, nbx: int,
-                             sky_h: int, sky_w: int,
-                             scal_ref,
-                             ir_ref, ig_ref, ib_ref, tr_ref,
-                             idx_refs, fx_refs, fy_refs):
-    """March + in-kernel skybox ADDRESSING epilogue: after the tile's march
-    loop finishes, the escape directions are converted to per-channel
-    equirect gather coordinates (flat quad index + bilinear fractions)
-    INSIDE the kernel — the reference does its sky math inside the CUDA
-    kernel too (raymarcher.cu:128-146). Only the irreducible HBM gather of
-    the 3 quads (96 bits/pixel) remains outside, followed by a fully fused
-    elementwise epilogue. Velocity/hit planes never touch HBM; horizon rays
-    need no special-casing because their transmittance is exactly 0 (set at
-    capture, raymarcher.cu:49), which zero-weights whatever the gather
-    returns."""
-    t, cam_pos, rd = _gen_tile_rays(scal_ref, width, height,
-                                    block_h, block_w, nbx)
-    ca_eff = scal_ref[15]
-
-    def make_state():
-        zeros = jnp.zeros_like(rd.x)
-        return MarchState(
-            p=Vec3(zeros + cam_pos[0], zeros + cam_pos[1], zeros + cam_pos[2]),
-            v=Vec3(rd.x, rd.y, rd.z),
-            intensity=Vec3(zeros, zeros, zeros),
-            transmittance=jnp.ones_like(zeros),
-            hit_horizon=jnp.zeros_like(zeros, dtype=bool),
-            active=jnp.ones_like(zeros, dtype=bool),
-        )
-
-    state = _march_tile_loop(scene, max_steps, unroll, group_rows,
-                             t, make_state)
-    ir_ref[...] = state.intensity.x
-    ig_ref[...] = state.intensity.y
-    ib_ref[...] = state.intensity.z
-    tr_ref[...] = state.transmittance
-    d = normalize(state.v)
-    for (idx, fx, fy), idx_ref, fx_ref, fy_ref in zip(
-        sky_coords(d, ca_eff, sky_h, sky_w), idx_refs, fx_refs, fy_refs
-    ):
-        idx_ref[...] = idx
-        fx_ref[...] = fx
-        fy_ref[...] = fy
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=(
-        "scene", "width", "height", "max_steps", "sky_h", "sky_w",
-        "block_h", "block_w", "unroll", "group_rows", "interpret",
-    ),
-)
-def march_pallas_camera_sky(
-    scene: SceneConfig,
-    camera,
-    effects: CameraEffects,
-    time,
-    width: int,
-    height: int,
-    max_steps: int,
-    sky_h: int,
-    sky_w: int,
-    block_h: int = BLOCK_H,
-    block_w: int = BLOCK_W,
-    unroll: int = UNROLL,
-    group_rows: int = GROUP_ROWS,
-    interpret: bool = False,
-):
-    """Fused march with in-kernel ray generation AND in-kernel sky gather
-    addressing. Returns lane-tile-layout planes (NOT unpacked to (H, W) —
-    the elementwise epilogue runs in lane layout and only the final packed
-    frame is re-tiled, see render_frame_pallas):
-
-      (intensity Vec3, transmittance,
-       (idx_r, idx_g, idx_b) int32, (fx_r, fx_g, fx_b), (fy_r, fy_g, fy_b)).
-    """
-    if (block_h * block_w) % 128:
-        raise ValueError("block_h*block_w must be a multiple of 128")
-    hp, wp = _round_up(height, block_h), _round_up(width, block_w)
-    nby, nbx = hp // block_h, wp // block_w
-    num_blocks = nby * nbx
-    tile_rows = (block_h * block_w) // 128
-
-    scal = pack_camera_scalars(camera, effects, time)
-
-    tile_spec = pl.BlockSpec(
-        (tile_rows, 128), lambda i: (i, 0), memory_space=pltpu.VMEM
-    )
-    fshape = jax.ShapeDtypeStruct((num_blocks * tile_rows, 128), jnp.float32)
-    ishape = jax.ShapeDtypeStruct((num_blocks * tile_rows, 128), jnp.int32)
-
-    unroll = largest_divisor_at_most(max_steps, unroll)
-    if group_rows:
-        group_rows = largest_divisor_at_most(tile_rows, group_rows)
-
-    def kernel(scal_ref, ir, ig, ib, tr, ixr, ixg, ixb,
-               fxr, fxg, fxb, fyr, fyg, fyb):
-        _march_camera_sky_kernel(
-            scene, max_steps, unroll, group_rows, width, height,
-            block_h, block_w, nbx, sky_h, sky_w, scal_ref,
-            ir, ig, ib, tr, (ixr, ixg, ixb), (fxr, fxg, fxb),
-            (fyr, fyg, fyb),
-        )
-
-    avg_steps = max(1, max_steps // 3)
-    cost = pl.CostEstimate(
-        flops=int(hp * wp) * avg_steps * 320,
-        bytes_accessed=int(hp * wp) * 4 * 13,
-        transcendentals=int(hp * wp) * avg_steps * 8,
-    )
-
-    outs = pl.pallas_call(
-        kernel,
-        grid=(num_blocks,),
-        in_specs=[pl.BlockSpec(memory_space=pltpu.SMEM)],  # scalars (16,)
-        out_specs=[tile_spec] * 13,
-        out_shape=[fshape] * 4 + [ishape] * 3 + [fshape] * 6,
-        compiler_params=pltpu.CompilerParams(
-            # Every tile writes only its own output block (no cross-tile
-            # carry), so the grid is legally parallel — on megacore parts
-            # (2 TensorCores/chip) Mosaic can split it across cores.
-            dimension_semantics=("parallel",),
-        ),
-        cost_estimate=cost,
-        interpret=interpret,
-    )(scal)
-
-    ir, ig, ib, tr = outs[:4]
-    idx3 = tuple(outs[4:7])
-    fx3 = tuple(outs[7:10])
-    fy3 = tuple(outs[10:13])
-    return Vec3(ir, ig, ib), tr, idx3, fx3, fy3
-
-
-def _uv_planes(width: int, height: int, effects: CameraEffects,
-               origin=None, img_w: Optional[int] = None,
-               img_h: Optional[int] = None,
-               strips: Optional[Tuple[int, int]] = None,
-               cstrips: Optional[Tuple[int, int]] = None):
-    """The (possibly distorted) uv planes for the vignette — same math as
-    generate_rays (raymarcher.cu:20-25) without the ray basis work.
-
-    With `origin=(x0, y0)` (traced f32 scalars) the (height, width) planes
-    cover the sub-rectangle at that global offset of an (img_h, img_w)
-    frame — bitwise a slice of the full-frame planes (exact integer f32
-    adds, same divisions). `strips=(sh, ystride)` / `cstrips=(sw, xstride)`
-    apply the same local->global row/col maps as _gen_tile_rays for
-    strip-interleaved shards."""
-    xi = jnp.arange(width, dtype=jnp.int32)
-    yi = jnp.arange(height, dtype=jnp.int32)
-    if strips is not None:
-        sh, ystride = strips
-        yi = (yi // sh) * ystride + yi % sh
-    if cstrips is not None:
-        sw, xstride = cstrips
-        xi = (xi // sw) * xstride + xi % sw
-    xs = xi.astype(jnp.float32)
-    ys = yi.astype(jnp.float32)
-    if origin is not None:
-        xs = xs + jnp.asarray(origin[0], jnp.float32)
-        ys = ys + jnp.asarray(origin[1], jnp.float32)
-    nw = jnp.float32(img_w if img_w is not None else width)
-    nh = jnp.float32(img_h if img_h is not None else height)
-    uv_x = jnp.broadcast_to(xs[None, :] / nw, (height, width))
-    uv_y = jnp.broadcast_to(ys[:, None] / nh, (height, width))
-    dx, dy = apply_lens_distortion(uv_x, uv_y, effects.distortion_amount)
-    on = effects.use_lens_distortion > 0.5
-    return jnp.where(on, dx, uv_x), jnp.where(on, dy, uv_y)
-
-
-def render_frame_pallas(
+def render_tile_pallas(
     scene: SceneConfig,
     settings: RenderSettings,
     camera,
     effects: CameraEffects,
     time,
-    sky: Optional[Skybox],
+    sky,
+    tile: Optional[Tuple[int, int]] = None,
+    offset=(0, 0),
     interpret: bool = False,
+    **kernel_kw,
 ) -> jnp.ndarray:
-    """Drop-in replacement for render/pipeline.render_frame using the fused
-    tile kernel. Same semantics, same output.
+    """`render/pipeline.render_tile` with the march in the GPU kernel:
+    uint8 RGBA of the (tile_w, tile_h) tile (supersampled pixels) at
+    `offset` of the settings' frame (default: the whole frame,
+    uint8[height, width, 4]). `kernel_kw` passes block, num_warps
+    and unroll through to `march_pallas` (for sweeps)."""
+    from relativisticraytracer_tpu.render.pipeline import frame_epilogue
 
-    With a skybox, the fused kernel emits gather coordinates directly (sky
-    addressing happens in-kernel, matching raymarcher.cu:128-146); outside
-    the kernel only the irreducible 3-quad HBM gather plus ONE fused
-    elementwise epilogue pass remain, all in lane-tile layout — the frame is
-    re-tiled to (H, W) exactly once, as a packed uint32 word per pixel."""
     ss = settings.supersample
-    w, h = settings.width * ss, settings.height * ss
-    if sky is None:
-        return _render_frame_pallas_nosky(
-            scene, settings, camera, effects, time, interpret=interpret)
-
-    sky_h, sky_w = sky.shape
-    # block-padded dims (static Python ints — must NOT round-trip through
-    # the jitted kernel call, where they would become tracers)
-    hp, wp = _round_up(h, BLOCK_H), _round_up(w, BLOCK_W)
-    intensity, trans, idx3, fx3, fy3 = march_pallas_camera_sky(
-        scene, camera, effects, jnp.asarray(time, jnp.float32),
-        w, h, settings.resolved_max_steps(scene), sky_h, sky_w,
-        interpret=interpret,
+    img = (settings.width * ss, settings.height * ss)
+    tw, th = tile if tile is not None else img
+    state = march_pallas(
+        scene, camera, effects, jnp.asarray(time, jnp.float32), tw, th,
+        settings.resolved_max_steps(scene), offset=offset, image=img,
+        interpret=interpret, **kernel_kw,
     )
-
-    # The sky gather — 96 bits/pixel is the information floor; the gather
-    # economics (one q4 row-gather vs per-channel, raymarcher.cu:131-145)
-    # live in skybox.gather_sky_coords, shared with the host fast path.
-    bg = gather_sky_coords(
-        sky, tuple(zip(idx3, fx3, fy3)), effects
+    px, py = pixel_grid(tw, th, offset)
+    _, uv_x, uv_y = primary_rays(
+        px, py, img[0], img[1], camera.forward, camera.right, camera.up,
+        effects.use_lens_distortion, effects.distortion_amount,
     )
+    return frame_epilogue(scene, effects, sky, state, uv_x, uv_y, ss)
 
-    # Captured rays have transmittance == 0 (raymarcher.cu:49), which
-    # zero-weights the background — no hit mask needed.
-    hdr = Vec3(
-        intensity.x + bg.x * trans,
-        intensity.y + bg.y * trans,
-        intensity.z + bg.z * trans,
-    )
-
-    # Vignette/distortion uv, remapped into the same lane-tile layout.
-    uv_x, uv_y = _uv_planes(w, h, effects)
-
-    def lanes(a):
-        return _to_lane_tiles(
-            jnp.pad(a, ((0, hp - h), (0, wp - w)), mode="edge"),
-            BLOCK_H, BLOCK_W,
-        )
-
-    ldr = apply_effects_and_tonemap(
-        hdr, lanes(uv_x), lanes(uv_y), effects, scene.exposure
-    )
-
-    if ss != 1:
-        def unlane(a):
-            return _from_lane_tiles(a, hp, wp, BLOCK_H, BLOCK_W)[:h, :w]
-
-        ldr = Vec3(unlane(ldr.x), unlane(ldr.y), unlane(ldr.z))
-        return pack_rgba8(downsample_box(ldr, ss))
-
-    word = pack_rgba8_word(ldr)
-    word = _from_lane_tiles(word, hp, wp, BLOCK_H, BLOCK_W)[:h, :w]
-    return word_to_rgba8(word)
-
-
-def _render_frame_pallas_nosky(
-    scene: SceneConfig,
-    settings: RenderSettings,
-    camera,
-    effects: CameraEffects,
-    time,
-    interpret: bool = False,
-) -> jnp.ndarray:
-    """Skybox-less variant (black background) on the plane-output kernel."""
-    ss = settings.supersample
-    intensity, trans, hit, vel = march_pallas_camera(
-        scene, camera, effects, jnp.asarray(time, jnp.float32),
-        settings.width * ss, settings.height * ss,
-        settings.resolved_max_steps(scene),
-        interpret=interpret,
-    )
-    uv_x, uv_y = _uv_planes(settings.width * ss, settings.height * ss, effects)
-    ldr = apply_effects_and_tonemap(
-        intensity, uv_x, uv_y, effects, scene.exposure
-    )
-    return pack_rgba8(downsample_box(ldr, ss))

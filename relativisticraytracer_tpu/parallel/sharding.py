@@ -1,37 +1,25 @@
-"""Multi-chip image-tile rendering over a `jax.sharding.Mesh`.
+"""Multi-card image-tile rendering over a `jax.sharding.Mesh`.
 
 The reference's only parallelism is the per-pixel CUDA thread grid
-(reference: src/raymarcher.cu:176-180). The TPU-native scaling story
-(SURVEY.md §2) is pure output-partitioned spatial tiling: the frame is
-sharded over a 2-D device mesh ('ty' rows x 'tx' cols) with `shard_map`;
-every ray is independent, so the frame program runs with ZERO collectives —
-the only cross-device traffic is the host gather of finished tiles (the
-analog of the reference's glReadPixels, main.cpp:89).
+(reference: src/raymarcher.cu:176-180). Across cards the frame is split
+into output tiles: it is sharded over a 2-D device mesh ('ty' rows x 'tx'
+cols) with `shard_map`; every ray is independent, so the frame program runs
+with ZERO collectives — the only cross-device traffic is the gather of
+finished tiles (the analog of the reference's glReadPixels, main.cpp:89).
 
-A free win of this design: the march's all-rays-done `lax.while_loop` runs
-per device, so each chip exits as soon as ITS tile is finished — cross-chip
-divergence costs nothing until the host gathers.
+Each device renders its tile with the single-card frame program
+(render/pipeline.render_tile): rays generated from the camera and the
+tile's global pixel offset, the march (GPU kernel or XLA loop, as
+`settings.resolved_loop()` says), sky, post FX and pack. A tile is bitwise
+the matching crop of the single-card frame (tests/test_sharding.py).
 
-On the fast path (loop="pallas", media_pass="compact", sky + media on) each
-shard runs the FULL single-chip compact renderer — in-kernel ray gen from
-the camera scalars plus the shard's global pixel offset, segment
-record/replay media compaction, sorted replay, per-shard sky gather and
-epilogue. The shard output is bitwise the corresponding crop of the
-single-chip frame (tests/test_sharding.py).
-
-Scaling is NOT 1/N: the frame time is the max over shards, and per-shard
-fixed costs (static sort/fallback buffer sizes, kernel prologues) do not
-shrink N-fold. Measured sequentially on one chip at the 1080p headline
-pose (docs/shard_balance.json, round 5, windowed sky + per-shard capacity
-scaling): a 4x2 mesh's shards run 34.7-37.2 ms strip-interleaved
-(max/mean 1.04; contiguous rectangles 35.7-49.2, max/mean 1.19) against
-the 170.7 ms single-chip frame — i.e. 8 chips ~= 37 ms/frame, a 4.6x
-speedup at 57% parallel efficiency.
+The march's early exit runs per device, so each card stops as soon as ITS
+tile is finished. The frame time is the max over shards; the photon ring
+at the image centre makes the central tiles the slowest.
 """
 
 from __future__ import annotations
 
-import dataclasses
 import math
 from typing import Optional, Sequence, Tuple
 
@@ -41,15 +29,9 @@ import numpy as np
 from jax.sharding import Mesh, PartitionSpec as P
 
 from relativisticraytracer_tpu.config import CameraEffects, RenderSettings, SceneConfig
-from relativisticraytracer_tpu.core.vecmath import Vec3, normalize
-from relativisticraytracer_tpu.render.camera import CameraState, generate_rays
-from relativisticraytracer_tpu.render.march import render_hdr
-from relativisticraytracer_tpu.render.postfx import (
-    apply_effects_and_tonemap,
-    downsample_box,
-    pack_rgba8,
-)
-from relativisticraytracer_tpu.render.skybox import Skybox, sample_sky, sample_sky_fast
+from relativisticraytracer_tpu.render.camera import CameraState
+from relativisticraytracer_tpu.render.pipeline import render_tile
+from relativisticraytracer_tpu.render.skybox import Skybox
 
 AXIS_ROWS = "ty"
 AXIS_COLS = "tx"
@@ -64,110 +46,13 @@ def _factor2(n: int) -> Tuple[int, int]:
     return best
 
 
-def strip_height(extent: int, n: int, ss: int = 1, target: int = 16) -> int:
-    """Strip size for interleaved shard assignment along one image axis.
-
-    The march's lane-steps concentrate in the photon-ring tiles at the
-    image center (docs/media_fire.json), so contiguous rectangles load the
-    center shards with most of the frame's work — the frame time is the
-    MAX over shards (docs/shard_balance.json). Interleaving spreads each
-    shard's rows across the frame in strips: shard i of n takes strips
-    i, i+n, i+2n, ... of `strip` rows each.
-
-    Picks the divisor of extent//n closest to `target` (ties to the
-    smaller: more strips = better balance) that is a multiple of `ss`
-    (supersampling boxes must not straddle strips). `target`=16 matches
-    the record kernel's block height — one strip per grid block keeps
-    in-kernel ray-gen locality without costing balance."""
-    per = extent // n
-    if extent % n:
-        raise ValueError(f"extent {extent} not divisible by {n} shards")
-    cands = [d for d in range(1, per)
-             if per % d == 0 and d % ss == 0]
-    if not cands:
-        # no proper strip divides: degenerate (sh == per) = contiguous
-        if per % ss:
-            raise ValueError(f"no strip size divides {per} with ss={ss}")
-        return per
-    return min(cands, key=lambda d: (abs(d - target), d))
-
-
-def reassemble_strips(
-    frame: np.ndarray, ny: int, nx: int, sh: int, sw: int
-) -> np.ndarray:
-    """Undo the strip-interleaved shard layout on the host.
-
-    `frame` is the gathered (H, W, C) output of the interleaved sharded
-    renderer: device (i, j)'s tile sits at block (i, j), and its local
-    row r holds global row (r // sh * ny + i) * sh + r % sh (columns
-    analogous with sw/nx; sw=0 or nx=1 means contiguous columns). A pure
-    permutation — the TPU-side program stays collective-free; this is
-    host work on the already-transferred frame (the analog of the
-    reference's glReadPixels-side handling, src/main.cpp:89)."""
-    h, w = frame.shape[:2]
-    rest = frame.shape[2:]
-    out = frame
-    if ny > 1 and sh:
-        kr = h // ny // sh
-        out = out.reshape(ny, kr, sh, w, *rest)
-        out = out.transpose(1, 0, 2, *range(3, out.ndim))
-        out = out.reshape(h, w, *rest)
-    if nx > 1 and sw:
-        kc = w // nx // sw
-        out = out.reshape(h, nx, kc, sw, *rest)
-        out = out.transpose(0, 2, 1, *range(3, out.ndim))
-        out = out.reshape(h, w, *rest)
-    return out
-
-
-def shard_settings(
-    settings: RenderSettings, ny: int, nx: int, interleave: bool
-) -> RenderSettings:
-    """Per-shard RenderSettings for an (ny, nx) mesh: fixed-size buffers
-    must shrink with the shard, or per-shard fixed costs eat the scaling
-    (VERDICT r4: at 4x2 the shard programs summed to ~335 ms against the
-    182 ms single-chip frame — ~54% parallel efficiency — because the
-    sorted-replay bookkeeping ran at the FULL-frame media_capacity in
-    every shard).
-
-    Interleaved shards see ~1/N of the media rows by construction, so 2/N
-    of the frame capacity is ample. Contiguous shards are unbalanced (the
-    disk concentrates media in the center rows — docs/media_fire.json),
-    so only the x-symmetric column split scales capacity. Overflow is
-    never wrong, just slower: the sorted replay falls back to the exact
-    image-layout pass under its lax.cond (ops/pallas_compact)."""
-    n_shards = ny * nx if interleave else nx
-    shard_cap = max(2 * settings.media_capacity // max(n_shards, 1),
-                    8 * 128)
-    return dataclasses.replace(
-        settings, media_capacity=min(settings.media_capacity, shard_cap)
-    )
-
-
-def resolve_interleave(
-    scene: SceneConfig, settings: RenderSettings, interleave
-) -> bool:
-    """Resolve the `interleave` knob. "auto" (the make_sharded_renderer
-    default since round 5) = strip-interleave whenever the compact fast
-    path applies: measured on chip at the 1080p headline pose, a 4x2 mesh's
-    slowest shard drops 49.2 -> 37.2 ms (max/mean 1.19 -> 1.04) with the
-    per-shard capacity scaling, winning on BOTH max and mean
-    (docs/shard_balance.json). Interleaving requires the compact Pallas
-    path; "auto" also needs a skybox at call time (render_frame_sharded
-    raises otherwise — a silent contiguous fallback would desync the
-    caller's reassemble)."""
-    if interleave == "auto":
-        return (settings.resolved_loop() == "pallas"
-                and settings.media_pass == "compact"
-                and (scene.enable_disk or scene.enable_clouds))
-    return bool(interleave)
-
-
 def make_mesh(
     devices: Optional[Sequence[jax.Device]] = None,
     shape: Optional[Tuple[int, int]] = None,
 ) -> Mesh:
-    """Build a ('ty', 'tx') tile mesh over the given devices (default: all)."""
+    """Build a ('ty', 'tx') tile mesh over the given devices (default: all).
+    The cards of one host reach each other all to all, so the shape follows
+    the image (most-square by default), not a physical topology."""
     devices = list(devices if devices is not None else jax.devices())
     if shape is None:
         shape = _factor2(len(devices))
@@ -185,207 +70,60 @@ def render_frame_sharded(
     effects: CameraEffects,
     time,
     sky: Optional[Skybox],
-    interleave: bool = False,
+    interpret: bool = False,
 ) -> jnp.ndarray:
     """Render one frame with the image tiled over `mesh`.
 
-    Ray generation is trivially cheap and runs replicated-then-sharded; the
-    heavy march + shading runs inside shard_map on each device's tile.
     Height/width must divide by the mesh rows/cols. Returns the sharded
     uint8[H, W, 4] frame; tiled == untiled bit-for-bit (tested).
-
-    `interleave=True` (compact fast path only): strip-interleaved shard
-    assignment — each device renders strips spread across the whole frame
-    instead of one contiguous rectangle, so the photon-ring/media rows at
-    the image center are split evenly over devices (measured max/mean
-    shard imbalance in docs/shard_balance.json motivates this). The
-    returned array is in the DEVICE layout; undo it on the host with
-    `reassemble_strips(frame, *interleave_params(settings, mesh))`.
-    """
+    `interpret=True` runs the GPU kernel in the Pallas interpreter (tests
+    on a machine without a GPU, with the kernel path chosen explicitly)."""
     ny, nx = mesh.devices.shape
     if settings.height % ny or settings.width % nx:
         raise ValueError(
             f"image {settings.height}x{settings.width} not divisible by mesh {ny}x{nx}"
         )
     ss = settings.supersample
-    interleave = resolve_interleave(scene, settings, interleave)
+    tw, th = settings.width * ss // nx, settings.height * ss // ny
 
-    loop = settings.resolved_loop()
-
-    compact_ok = (
-        loop == "pallas"
-        and settings.media_pass == "compact"
-        and sky is not None
-        and (scene.enable_disk or scene.enable_clouds)
-    )
-    if interleave and not compact_ok:
-        raise ValueError(
-            "interleave=True requires the compact fast path "
-            "(loop='pallas', media_pass='compact', sky + media enabled)"
+    def tile_fn(camera, effects, time, sky):
+        offset = (
+            (jax.lax.axis_index(AXIS_COLS) * tw).astype(jnp.float32),
+            (jax.lax.axis_index(AXIS_ROWS) * th).astype(jnp.float32),
         )
-
-    if compact_ok:
-        # The fast single-chip path, per shard: segment-record/replay media
-        # compaction + sorted replay (ops/pallas_compact). Each device
-        # generates ITS tile's rays in-kernel from the camera scalars plus
-        # its global pixel offset — no ray planes cross HBM, and the shard
-        # output is bitwise the corresponding crop of the single-chip
-        # frame (tested on the CPU mesh).
-        from relativisticraytracer_tpu.ops.pallas_compact import (
-            _compact_tile_rgba,
-        )
-
-        W, H = settings.width * ss, settings.height * ss
-        tw, th = W // nx, H // ny
-        interpret = jax.default_backend() != "tpu"
-        settings = shard_settings(settings, ny, nx, interleave)
-        strips = cstrips = None
-        oy_step, ox_step = th, tw
-        if interleave:
-            sh, sw = _interleave_strips_ss(H, W, ny, nx, ss)
-            if sh:
-                strips = (sh, ny * sh)
-                oy_step = sh
-            if sw:
-                cstrips = (sw, nx * sw)
-                ox_step = sw
-
-        def compact_tile_fn(camera, effects, time, sky):
-            x0 = (jax.lax.axis_index(AXIS_COLS) * ox_step).astype(
-                jnp.float32)
-            y0 = (jax.lax.axis_index(AXIS_ROWS) * oy_step).astype(
-                jnp.float32)
-            return _compact_tile_rgba(
-                scene, settings, camera, effects, time, sky, tw, th,
-                interpret, origin=(x0, y0), img_w=W, img_h=H,
-                strips=strips, cstrips=cstrips,
+        if interpret:
+            from relativisticraytracer_tpu.ops.pallas_march import (
+                render_tile_pallas,
             )
 
-        sharded = jax.shard_map(
-            compact_tile_fn,
-            mesh=mesh,
-            in_specs=(P(), P(), P(), P()),
-            out_specs=P(AXIS_ROWS, AXIS_COLS, None),
-            check_vma=False,
-        )
-        return sharded(camera, effects, time, sky)
-
-    origin, direction, uv_x, uv_y = generate_rays(
-        settings.width * ss, settings.height * ss, camera, effects
-    )
-
-    tile_spec = P(AXIS_ROWS, AXIS_COLS)
-
-    def tile_fn(origin, direction, uv_x, uv_y, effects, time, sky):
-        if loop == "pallas":
-            # Per-device fused march kernel — each chip runs the fast path
-            # on its own tile (interpreted off-TPU so the bitwise
-            # tiled==untiled contract is testable on the CPU mesh).
-            from relativisticraytracer_tpu.ops.pallas_march import march_pallas
-
-            intensity, trans, hit, vel = march_pallas(
-                scene, origin, direction,
-                jnp.asarray(time, jnp.float32),
-                settings.resolved_max_steps(scene),
-                interpret=jax.default_backend() != "tpu",
-            )
-            d = normalize(vel)
-            if sky is not None:
-                # q4 row-gather (see skybox.sample_sky_fast): the multi-chip
-                # fast path uses the same gather economics as the fused
-                # single-chip kernel.
-                bg = sample_sky_fast(sky, d, effects)
-            else:
-                zero = jnp.zeros_like(d.x)
-                bg = Vec3(zero, zero, zero)
-            zero = jnp.zeros_like(trans)
-            hdr = Vec3(
-                intensity.x + jnp.where(hit, zero, bg.x) * trans,
-                intensity.y + jnp.where(hit, zero, bg.y) * trans,
-                intensity.z + jnp.where(hit, zero, bg.z) * trans,
-            )
-        else:
-            if sky is not None:
-                def sky_fn(d: Vec3) -> Vec3:
-                    return sample_sky(sky, d, effects)
-            else:
-                def sky_fn(d: Vec3) -> Vec3:
-                    zero = jnp.zeros_like(d.x)
-                    return Vec3(zero, zero, zero)
-
-            hdr, _ = render_hdr(
-                scene, origin, direction, time, sky_fn,
-                max_steps=settings.resolved_max_steps(scene),
-                loop=loop if loop in ("scan", "while") else "while",
-                chunk=settings.chunk,
-            )
-        ldr = apply_effects_and_tonemap(hdr, uv_x, uv_y, effects, scene.exposure)
-        return pack_rgba8(downsample_box(ldr, ss))
+            return render_tile_pallas(scene, settings, camera, effects, time,
+                                      sky, tile=(tw, th), offset=offset,
+                                      interpret=True)
+        return render_tile(scene, settings, camera, effects, time, sky,
+                           tile=(tw, th), offset=offset)
 
     sharded = jax.shard_map(
         tile_fn,
         mesh=mesh,
-        in_specs=(tile_spec, tile_spec, tile_spec, tile_spec, P(), P(), P()),
+        in_specs=(P(), P(), P(), P()),
         out_specs=P(AXIS_ROWS, AXIS_COLS, None),
-        # pallas_call outputs don't carry varying-mesh-axis metadata; the
-        # kernel is purely tile-local so the check adds nothing here.
+        # pallas_call outputs carry no varying-mesh-axis metadata; every
+        # tile is purely local, so the check adds nothing here.
         check_vma=False,
     )
-    return sharded(origin, direction, uv_x, uv_y, effects, time, sky)
-
-
-def _interleave_strips_ss(H: int, W: int, ny: int, nx: int, ss: int):
-    """(sh, sw) strip sizes in SUPERSAMPLED pixels for an interleaved
-    (ny, nx) mesh over an (H, W) supersampled frame. Columns interleave
-    only for nx > 2: a centered scene splits evenly over two contiguous
-    halves (the ring is x-symmetric about the image center), and wider
-    strips keep the record kernel's 128-lane blocks intact."""
-    sh = strip_height(H, ny, ss=ss) if ny > 1 else 0
-    sw = strip_height(W, nx, ss=ss, target=128) if nx > 2 else 0
-    return sh, sw
-
-
-def interleave_params(settings: RenderSettings, mesh: Mesh):
-    """(ny, nx, sh_out, sw_out) for reassemble_strips, in OUTPUT pixels
-    (post-supersample) — pass the gathered frame through
-    reassemble_strips(frame, *interleave_params(...)) to restore image
-    order."""
-    ny, nx = mesh.devices.shape
-    ss = settings.supersample
-    H, W = settings.height * ss, settings.width * ss
-    sh, sw = _interleave_strips_ss(H, W, ny, nx, ss)
-    return ny, nx, sh // ss, sw // ss
+    return sharded(camera, effects, time, sky)
 
 
 def make_sharded_renderer(
     scene: SceneConfig,
     settings: RenderSettings,
     mesh: Mesh,
-    interleave="auto",
 ):
     """jit-compiled sharded frame function (camera, effects, time, sky) ->
-    uint8[H, W, 4]. `interleave`: "auto" (default) strip-interleaves the
-    shard assignment whenever the compact fast path applies — the measured
-    load-balance win (see resolve_interleave); True/False force it. When
-    interleaved the result is in device-strip layout; ALWAYS pass frames
-    through the returned function's `.reassemble(frame)` host helper
-    (numpy), which restores image order and is the identity when
-    contiguous."""
-    interleave = resolve_interleave(scene, settings, interleave)
+    uint8[H, W, 4], sharded over `mesh`."""
 
     def fn(camera, effects, time, sky):
         return render_frame_sharded(scene, settings, mesh, camera, effects,
-                                    time, sky, interleave=interleave)
+                                    time, sky)
 
-    jitted = jax.jit(fn)
-    if interleave:
-        params = interleave_params(settings, mesh)
-
-        def reassemble(frame):
-            return reassemble_strips(np.asarray(frame), *params)
-    else:
-        def reassemble(frame):
-            return np.asarray(frame)
-
-    jitted.reassemble = reassemble
-    return jitted
+    return jax.jit(fn)

@@ -8,7 +8,7 @@ plus an ad-hoc Lense-Thirring frame-dragging term
 with a hard zero inside r < Rs/2 (geodesics.h:33). Pixel parity requires
 reproducing exactly this formula, so we do.
 
-All functions are masked/branch-free (TPU lanes run lock-step): guards are
+All functions are masked/branch-free (array lanes run lock-step): guards are
 `jnp.where` selects, with safe denominators so no Inf/NaN is ever produced
 even in masked-off lanes (keeps `jax_debug_nans` clean).
 """

@@ -94,6 +94,51 @@ def default_camera() -> CameraState:
     return camera_state_from_pose((0.0, 10.0, -60.0), 0.0, -10.0)
 
 
+def primary_rays(px, py, width: int, height: int, forward, right, up,
+                 use_lens_distortion, distortion_amount):
+    """Directions and (possibly lens-distorted) uv for pixel coordinates
+    (px, py) of a width x height image (raymarcher.cu:20-34). The ONE
+    definition shared by `generate_rays` and the GPU kernel's in-kernel
+    ray generation (ops/pallas_march.py): integer-valued f32 pixel
+    coordinates and the same op order make the two bitwise equal.
+    `forward`/`right`/`up` are 3-sequences of scalars."""
+    # division (not reciprocal-multiply), as in the reference
+    uv_x = px / jnp.float32(width)
+    uv_y = py / jnp.float32(height)
+
+    # Barrel distortion pre-warp (raymarcher.cu:22-25), runtime-gated without
+    # retrace: blend by the 0/1 flag.
+    dx, dy = apply_lens_distortion(uv_x, uv_y, distortion_amount)
+    on = use_lens_distortion > 0.5
+    uv_x = jnp.where(on, dx, uv_x)
+    uv_y = jnp.where(on, dy, uv_y)
+
+    aspect = jnp.float32(width) / jnp.float32(height)
+    u = (uv_x * 2.0 - 1.0) * aspect
+    v = uv_y * 2.0 - 1.0
+
+    f, r = forward, right
+    rd = normalize(
+        Vec3(
+            f[0] + u * r[0] + v * up[0],
+            f[1] + u * r[1] + v * up[1],
+            f[2] + u * r[2] + v * up[2],
+        )
+    )
+    return rd, uv_x, uv_y
+
+
+def pixel_grid(width: int, height: int, offset=(0, 0)):
+    """f32 (px, py) planes of a height x width tile whose top-left pixel is
+    `offset` = (x0, y0) (static ints or traced scalars) of a larger image.
+    Integer-valued f32 adds below 2^24 are exact, so a tile's coordinates
+    are bitwise the matching crop of the full image's."""
+    xs = jnp.arange(width, dtype=jnp.float32) + jnp.asarray(offset[0], jnp.float32)
+    ys = jnp.arange(height, dtype=jnp.float32) + jnp.asarray(offset[1], jnp.float32)
+    return (jnp.broadcast_to(xs[None, :], (height, width)),
+            jnp.broadcast_to(ys[:, None], (height, width)))
+
+
 def generate_rays(
     width: int,
     height: int,
@@ -106,29 +151,10 @@ def generate_rays(
     float32[height, width] plane. uv is the (possibly lens-distorted)
     screen coordinate later reused by the vignette (raymarcher.cu:160).
     """
-    xs = jnp.arange(width, dtype=jnp.float32)
-    ys = jnp.arange(height, dtype=jnp.float32)
-    uv_x = jnp.broadcast_to(xs[None, :] / jnp.float32(width), (height, width))
-    uv_y = jnp.broadcast_to(ys[:, None] / jnp.float32(height), (height, width))
-
-    # Barrel distortion pre-warp (raymarcher.cu:22-25), runtime-gated without
-    # retrace: blend by the 0/1 flag.
-    dx, dy = apply_lens_distortion(uv_x, uv_y, effects.distortion_amount)
-    on = effects.use_lens_distortion > 0.5
-    uv_x = jnp.where(on, dx, uv_x)
-    uv_y = jnp.where(on, dy, uv_y)
-
-    aspect = jnp.float32(width) / jnp.float32(height)
-    u = (uv_x * 2.0 - 1.0) * aspect
-    v = uv_y * 2.0 - 1.0
-
-    f, r, up = cam.forward, cam.right, cam.up
-    rd = normalize(
-        Vec3(
-            f[0] + u * r[0] + v * up[0],
-            f[1] + u * r[1] + v * up[1],
-            f[2] + u * r[2] + v * up[2],
-        )
+    px, py = pixel_grid(width, height)
+    rd, uv_x, uv_y = primary_rays(
+        px, py, width, height, cam.forward, cam.right, cam.up,
+        effects.use_lens_distortion, effects.distortion_amount,
     )
     shape = (height, width)
     origin = Vec3(

@@ -1,9 +1,9 @@
 """The geodesic ray march — the hot loop of the whole framework.
 
 Re-designs the reference per-pixel CUDA march (src/raymarcher.cu:41-121)
-for TPU: CUDA thread divergence (per-thread `break` on horizon capture or
-escape) becomes lock-step masked iteration — every ray carries an `active`
-mask and all updates are `where`-selected. Step semantics match the
+as array code: CUDA thread divergence (per-thread `break` on horizon
+capture or escape) becomes lock-step masked iteration — every ray carries
+an `active` mask and all updates are `where`-selected. Step semantics match the
 reference exactly:
 
   per step (raymarcher.cu:41-121):
@@ -22,14 +22,13 @@ reference exactly:
 Loop strategies:
   * "scan":  lax.scan over a fixed max_steps trip count;
   * "while": lax.while_loop over chunks of scan steps, exiting as soon as
-    every ray is done — the TPU analog of early thread exit (whole-array
-    granularity; the Pallas kernel in ops/pallas_march.py refines this to
-    per-tile granularity).
+    every ray is done — early thread exit at whole-frame granularity (the
+    GPU kernel in ops/pallas_march.py refines this to one block of rays).
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple
 
 import jax
 import jax.numpy as jnp
@@ -114,7 +113,7 @@ def _media_contribution(scene: SceneConfig, rel: Vec3, r2, v_new: Vec3,
 
     disk_pred/cloud_pred: optional traced scalar bools — when given, each
     component block (envelope + multi-octave noise + emission) runs under a
-    `lax.cond`, so a Pallas tile whose probe is all-False skips it entirely."""
+    `lax.cond`, so a kernel block whose probe is all-False skips it."""
     zero = jnp.zeros_like(r2)
     emit_r = zero
     emit_g = zero
@@ -198,9 +197,7 @@ def _media_contribution(scene: SceneConfig, rel: Vec3, r2, v_new: Vec3,
 
 def compose_step(intensity: Vec3, trans, ex, ey, ez, opacity, in_media, h):
     """Front-to-back emission/absorption compositing for one step
-    (raymarcher.cu:107-115). Shared by the inline march and the
-    segment-replay media pass (ops/pallas_compact.py) so the accumulation
-    op order is THE SAME function in both — bitwise-equal by construction."""
+    (raymarcher.cu:107-115)."""
     d_tau = opacity * h
     step_trans = jnp.exp(-d_tau)
     factor = (1.0 - step_trans) * trans
@@ -215,8 +212,7 @@ def compose_step(intensity: Vec3, trans, ex, ey, ez, opacity, in_media, h):
 
 def adaptive_h(scene: SceneConfig, r2, in_disk_zone, in_cloud_zone, active):
     """The reference's adaptive step size from PRE-step zone flags
-    (raymarcher.cu:54-62), with finished rays frozen via h = 0. Shared by
-    march_step and the segment-replay pass (exact same op order)."""
+    (raymarcher.cu:54-62), with finished rays frozen via h = 0."""
     near_bh = r2 < 18.0 ** 2
     h = scene.step_size_m * jnp.where(
         near_bh, 0.1,
@@ -226,8 +222,7 @@ def adaptive_h(scene: SceneConfig, r2, in_disk_zone, in_cloud_zone, active):
 
 
 def media_zones(scene: SceneConfig, rel: Vec3, r2):
-    """PRE-step zone flags (raymarcher.cu:54-62). Shared with the
-    segment-replay pass."""
+    """PRE-step zone flags (raymarcher.cu:54-62)."""
     abs_y = jnp.abs(rel.y)
     in_disk_zone = jnp.logical_and(
         abs_y < scene.disk_h_m * 5.0, r2 < (scene.disk_out_m + 5.0) ** 2
@@ -238,33 +233,24 @@ def media_zones(scene: SceneConfig, rel: Vec3, r2):
     return in_disk_zone, in_cloud_zone
 
 
+def block_any(mask) -> jnp.ndarray:
+    """`jnp.any` as an int32 max-reduction: Pallas's Triton lowering has
+    no reduce_or, so the GPU kernel's block-wide tests go through this."""
+    return jnp.max(mask.astype(jnp.int32)) > 0
+
+
 def march_step(scene: SceneConfig, state: MarchState, time,
-               media_cond: bool = False,
-               media_group_rows: int = 0,
-               media_hook=None) -> MarchState:
+               media_cond: bool = False) -> MarchState:
     """One reference march iteration (raymarcher.cu:41-121), fully masked.
 
     media_cond=True wraps the radiative-transfer block in a `lax.cond` on
-    "any ray in this array is inside a media zone" — a whole-array skip of
-    the (expensive) density evaluation. Used by the Pallas kernel where the
-    array is one pixel tile, so vacuum tiles march at vacuum cost.
-
-    media_group_rows=N (with media_cond=True) refines the skip to
-    independent N-row slices of the array: each slice gets its own probe
-    reduction and lax.cond, so a tile that clips a medium only shades the
-    rows that might touch it. The loop carry is unchanged (one state; the
-    slices are reassembled with a concatenate), unlike the earlier
-    tuple-of-states grouping that multiplied the while carry and spilled.
-    Measured on the 1080p headline frame, whole-tile conds execute 3.3x the
-    per-ray-ideal media lane-steps; 8-row slices cut that to 2.6x
-    (docs/media_fire.json). Wall time on chip moves the OTHER way, though
-    — 230 ms whole-tile vs 428 ms at 8-row groups (tools/sweep_fused.py):
-    each slice's lax.cond dispatch outweighs the skipped work — so the
-    production default stays whole-tile (ops/pallas_march.GROUP_ROWS = 0)
-    and this knob documents a measured dead end. Exactness is unaffected:
-    a slice skips only when every lane's probe is False, which is
-    conservative
-    (tests/test_densities.py::test_probe_bounds_are_conservative)."""
+    "any ray in this array may be lit by a medium" (the conservative
+    `media_probes`, tests/test_densities.py::test_probe_bounds_are_conservative)
+    — a whole-array skip of the expensive density evaluation. The GPU
+    kernel (ops/pallas_march.py) uses it with the array = one block of
+    rays, so a block pays for media only when one of its rays needs it:
+    the reference's divergent media branch (raymarcher.cu:67-117) at
+    block granularity. The skip is exact."""
     p, v, intensity, trans, hit, active = state
     eh = scene.event_horizon
     mp = scene.mass_pos
@@ -292,80 +278,38 @@ def march_step(scene: SceneConfig, state: MarchState, time,
     h = adaptive_h(scene, r2, in_disk_zone, in_cloud_zone, active)
 
     # 3. RK4 (raymarcher.cu:64)
-    p_pre, v_pre = p, v
     p, v = rk4_step(scene, p, v, h)
 
     # 4. radiative transfer (raymarcher.cu:67-117): PRE-step position,
     # POST-step velocity
-    if media_hook is not None:
-        # Segment-recording pass (ops/pallas_compact.py): the hook replaces
-        # the shading block — it sees the PRE-step position/velocity (what a
-        # replay must restart from) plus everything the probes need, and
-        # returns (intensity, trans) unchanged.
-        intensity, trans = media_hook(
-            p_pre=p_pre, v_pre=v_pre, rel=rel, r2=r2, v_new=v,
-            in_disk_zone=in_disk_zone, in_cloud_zone=in_cloud_zone,
-            h=h, active=active, intensity=intensity, trans=trans,
-        )
-    elif scene.enable_disk or scene.enable_clouds:
+    if scene.enable_disk or scene.enable_clouds:
         in_media = jnp.logical_and(
             active, jnp.logical_or(in_disk_zone, in_cloud_zone)
         )
-
-        compose = compose_step  # shared with the replay pass (see above)
-
         if media_cond:
             probe_disk, probe_cloud = media_probes(
                 scene, rel, in_disk_zone, in_cloud_zone, active
             )
-
-            def conded_media(sl):
-                """Media eval + compositing for row-slice `sl` (None = the
-                whole array, no indexing — keeps 0-d scalar-ray states
-                legal) under its own probe-reduced lax.cond; returns the
-                slice's new (intensity, trans)."""
-                ix = (lambda a: a) if sl is None else (lambda a: a[sl])
-                pd = jnp.any(ix(probe_disk)) if probe_disk is not None else None
-                pc = jnp.any(ix(probe_cloud)) if probe_cloud is not None else None
-                preds = [p for p in (pd, pc) if p is not None]
-                any_pred = preds[0]
-                for extra in preds[1:]:
-                    any_pred = jnp.logical_or(any_pred, extra)
-                rel_s = Vec3(ix(rel.x), ix(rel.y), ix(rel.z))
-                v_s = Vec3(ix(v.x), ix(v.y), ix(v.z))
-                inten_s = Vec3(ix(intensity.x), ix(intensity.y),
-                               ix(intensity.z))
-                emit, opacity = _media_contribution(
-                    scene, rel_s, ix(r2), v_s,
-                    ix(in_disk_zone), ix(in_cloud_zone), time,
-                    disk_pred=pd, cloud_pred=pc,
-                )
-                return jax.lax.cond(
-                    any_pred,
-                    lambda i, t: compose(i, t, emit.x, emit.y, emit.z,
-                                         opacity, ix(in_media), ix(h)),
-                    lambda i, t: (i, t),
-                    inten_s, ix(trans),
-                )
-
-            rows = rel.x.shape[0] if rel.x.ndim else 1
-            if media_group_rows and 0 < media_group_rows < rows:
-                step = media_group_rows
-                parts = [conded_media(slice(g, g + step))
-                         for g in range(0, rows, step)]
-                intensity = Vec3(
-                    jnp.concatenate([p[0].x for p in parts]),
-                    jnp.concatenate([p[0].y for p in parts]),
-                    jnp.concatenate([p[0].z for p in parts]),
-                )
-                trans = jnp.concatenate([p[1] for p in parts])
-            else:
-                intensity, trans = conded_media(None)
+            pd = block_any(probe_disk) if probe_disk is not None else None
+            pc = block_any(probe_cloud) if probe_cloud is not None else None
+            any_pred = pd if pc is None else (
+                pc if pd is None else jnp.logical_or(pd, pc))
+            emit, opacity = _media_contribution(
+                scene, rel, r2, v, in_disk_zone, in_cloud_zone, time,
+                disk_pred=pd, cloud_pred=pc,
+            )
+            intensity, trans = jax.lax.cond(
+                any_pred,
+                lambda i, t: compose_step(i, t, emit.x, emit.y, emit.z,
+                                          opacity, in_media, h),
+                lambda i, t: (i, t),
+                intensity, trans,
+            )
         else:
             emit, opacity = _media_contribution(
                 scene, rel, r2, v, in_disk_zone, in_cloud_zone, time
             )
-            intensity, trans = compose(
+            intensity, trans = compose_step(
                 intensity, trans, emit.x, emit.y, emit.z, opacity,
                 in_media, h,
             )
@@ -427,21 +371,11 @@ def march(
     raise ValueError(f"unknown loop strategy {loop!r}")
 
 
-def render_hdr(
-    scene: SceneConfig,
-    origin: Vec3,
-    direction: Vec3,
-    time,
-    sky_fn,
-    max_steps: int | None = None,
-    loop: str = "while",
-    chunk: int = 64,
-) -> Tuple[Vec3, MarchState]:
-    """March + background compositing (raymarcher.cu:123-150).
-
-    `sky_fn(d: Vec3) -> Vec3` samples the background for the final ray
-    direction (black where the horizon was hit)."""
-    state = march(scene, origin, direction, time, max_steps, loop, chunk)
+def composite_background(state: MarchState, sky_fn) -> Vec3:
+    """Final HDR color of marched rays: emission plus the background seen
+    along the final direction through the remaining transmittance
+    (raymarcher.cu:123-150). Shared by the XLA march and the GPU kernel's
+    epilogue, so the two paths differ only inside the march."""
     d = normalize(state.v)
     bg = sky_fn(d)
     zero = jnp.zeros_like(state.transmittance)
@@ -450,9 +384,8 @@ def render_hdr(
         _select(state.hit_horizon, zero, bg.y),
         _select(state.hit_horizon, zero, bg.z),
     )
-    hdr = Vec3(
+    return Vec3(
         state.intensity.x + bg.x * state.transmittance,
         state.intensity.y + bg.y * state.transmittance,
         state.intensity.z + bg.z * state.transmittance,
     )
-    return hdr, state

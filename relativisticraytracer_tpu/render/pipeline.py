@@ -4,7 +4,7 @@ Everything the reference spreads over main.cpp/GL/CUDA plumbing collapses
 into `render_frame`: ray gen -> masked geodesic march -> radiative transfer
 -> skybox composite -> post FX -> tone map -> uint8 pack. The host driver
 (runtime/app.py) only feeds (camera, effects, time) pytrees and streams
-uint8 frames out — the TPU analog of the reference's per-frame kernel
+uint8 frames out — the analog of the reference's per-frame kernel
 launch + PBO interop (src/main.cpp:460-480).
 """
 
@@ -23,14 +23,81 @@ from relativisticraytracer_tpu.config import (
     SceneConfig,
 )
 from relativisticraytracer_tpu.core.vecmath import Vec3
-from relativisticraytracer_tpu.render.camera import CameraState, generate_rays
-from relativisticraytracer_tpu.render.march import render_hdr
+from relativisticraytracer_tpu.render.camera import (
+    CameraState,
+    pixel_grid,
+    primary_rays,
+)
+from relativisticraytracer_tpu.render.march import (
+    MarchState,
+    composite_background,
+    march,
+)
 from relativisticraytracer_tpu.render.postfx import (
     apply_effects_and_tonemap,
     downsample_box,
     pack_rgba8,
 )
 from relativisticraytracer_tpu.render.skybox import Skybox, sample_sky
+
+
+def frame_epilogue(scene: SceneConfig, effects: CameraEffects,
+                   sky: Optional[Skybox], state: MarchState, uv_x, uv_y,
+                   ss: int) -> jnp.ndarray:
+    """Marched rays -> uint8 RGBA: sky composite (raymarcher.cu:123-150),
+    post FX + tone map (:152-166), supersample resolve and pack (:168-172).
+    Shared by the XLA march and the GPU kernel path."""
+    if sky is not None:
+        def sky_fn(d: Vec3) -> Vec3:
+            return sample_sky(sky, d, effects)
+    else:
+        def sky_fn(d: Vec3) -> Vec3:
+            zero = jnp.zeros_like(d.x)
+            return Vec3(zero, zero, zero)
+
+    hdr = composite_background(state, sky_fn)
+    ldr = apply_effects_and_tonemap(hdr, uv_x, uv_y, effects, scene.exposure)
+    return pack_rgba8(downsample_box(ldr, ss))
+
+
+def render_tile(
+    scene: SceneConfig,
+    settings: RenderSettings,
+    camera: CameraState,
+    effects: CameraEffects,
+    time,
+    sky: Optional[Skybox],
+    tile=None,
+    offset=(0, 0),
+) -> jnp.ndarray:
+    """Render the (tile_w, tile_h) tile, in supersampled pixels, whose
+    top-left pixel is `offset` of the settings' frame (default: the whole
+    frame) -> uint8[tile_h/ss, tile_w/ss, 4]. A tile is bitwise the
+    matching crop of the frame, which is what the multi-card path
+    (parallel/sharding.py) relies on. The march runs as
+    `settings.resolved_loop()` says: the GPU kernel or an XLA loop."""
+    if settings.resolved_loop() == "pallas":
+        from relativisticraytracer_tpu.ops.pallas_march import (
+            render_tile_pallas,
+        )
+
+        return render_tile_pallas(scene, settings, camera, effects, time,
+                                  sky, tile=tile, offset=offset)
+
+    ss = settings.supersample
+    img_w, img_h = settings.width * ss, settings.height * ss
+    tw, th = tile if tile is not None else (img_w, img_h)
+    px, py = pixel_grid(tw, th, offset)
+    direction, uv_x, uv_y = primary_rays(
+        px, py, img_w, img_h, camera.forward, camera.right, camera.up,
+        effects.use_lens_distortion, effects.distortion_amount,
+    )
+    origin = Vec3(*(jnp.broadcast_to(camera.pos[k], (th, tw))
+                    for k in range(3)))
+    state = march(scene, origin, direction, time,
+                  max_steps=settings.resolved_max_steps(scene),
+                  loop=settings.resolved_loop(), chunk=settings.chunk)
+    return frame_epilogue(scene, effects, sky, state, uv_x, uv_y, ss)
 
 
 def render_frame(
@@ -47,54 +114,12 @@ def render_frame(
     and `sky` are traced, so camera motion, effect toggles, the sim clock,
     and even skybox swaps reuse the compiled program.
     """
-    ss = settings.supersample
-    origin, direction, uv_x, uv_y = generate_rays(
-        settings.width * ss, settings.height * ss, camera, effects
-    )
-
-    if sky is not None:
-        def sky_fn(d: Vec3) -> Vec3:
-            return sample_sky(sky, d, effects)
-    else:
-        def sky_fn(d: Vec3) -> Vec3:
-            zero = jnp.zeros_like(d.x)
-            return Vec3(zero, zero, zero)
-
-    loop = settings.resolved_loop()
-    hdr, _ = render_hdr(
-        scene,
-        origin,
-        direction,
-        time,
-        sky_fn,
-        max_steps=settings.resolved_max_steps(scene),
-        loop="while" if loop == "pallas" else loop,
-        chunk=settings.chunk,
-    )
-    ldr = apply_effects_and_tonemap(hdr, uv_x, uv_y, effects, scene.exposure)
-    return pack_rgba8(downsample_box(ldr, ss))
+    return render_tile(scene, settings, camera, effects, time, sky)
 
 
 @functools.lru_cache(maxsize=32)
 def _compiled_render(scene: SceneConfig, settings: RenderSettings):
-    if settings.resolved_loop() == "pallas":
-        if settings.media_pass == "compact":
-            from relativisticraytracer_tpu.ops.pallas_compact import (
-                render_frame_pallas_compact as render_frame_pallas,
-            )
-        else:
-            from relativisticraytracer_tpu.ops.pallas_march import (
-                render_frame_pallas,
-            )
-
-        # Off-TPU an explicit loop="pallas" runs the kernel in interpreter
-        # mode instead of failing at Mosaic lowering (same rule as the
-        # sharded path, parallel/sharding.py).
-        fn = functools.partial(render_frame_pallas, scene, settings,
-                               interpret=jax.default_backend() != "tpu")
-    else:
-        fn = functools.partial(render_frame, scene, settings)
-    return jax.jit(fn)
+    return jax.jit(functools.partial(render_frame, scene, settings))
 
 
 class Renderer:
@@ -114,18 +139,13 @@ class Renderer:
         self.scene = scene
         self.settings = settings
         # `skybox` shares an already-built device texture (e.g. between a
-        # quality and a motion renderer — one HBM copy); `skybox_rgba`
+        # quality and a motion renderer — one device copy); `skybox_rgba`
         # uploads a host array.
         self.sky: Optional[Skybox] = skybox
         if skybox is None and skybox_rgba is not None:
             from relativisticraytracer_tpu.render.skybox import skybox_from_array
 
-            # the interleaved fast-gather table only pays for itself on the
-            # fused kernel path; skip its ~2.3x HBM cost elsewhere
-            self.sky = skybox_from_array(
-                skybox_rgba,
-                fast_table=settings.resolved_loop() == "pallas",
-            )
+            self.sky = skybox_from_array(skybox_rgba)
         self._fn = _compiled_render(scene, settings)
         self._sky_cache: dict = {}
 
@@ -145,7 +165,7 @@ class Renderer:
         return np.asarray(self.render(camera, effects, time))
 
     def _sky_on(self, device):
-        """Per-device replica of the skybox (one-time upload per chip)."""
+        """Per-device replica of the skybox (one-time upload per card)."""
         if self.sky is None or device is None:
             return self.sky
         if device not in self._sky_cache:
@@ -156,9 +176,9 @@ class Renderer:
                   time: float = 0.0) -> jnp.ndarray:
         """Dispatch one frame on a SPECIFIC jax.Device (returns the device
         array without blocking). Frames are mutually independent, so an
-        animation round-robins them across chips with zero communication —
+        animation round-robins them across cards with zero communication —
         the frame-parallel complement to parallel/sharding's spatial tiling
-        (reference recording loop: src/main.cpp:505-529, at N-chip
+        (reference recording loop: src/main.cpp:505-529, at N-card
         throughput)."""
         if effects is None:
             effects = CameraEffects()

@@ -3,7 +3,7 @@ and the kernel epilogue, src/raymarcher.cu:152-173).
 
 All effects are per-pixel closed forms (the reference "bloom" is a luma
 threshold self-add with NO blur — post_processing.h:27-31); the whole chain
-fuses into the frame program as pure VPU elementwise work.
+fuses into the frame program as pure elementwise work.
 """
 
 from __future__ import annotations
@@ -102,30 +102,6 @@ def pack_rgba8(ldr: Vec3) -> jnp.ndarray:
     return jnp.stack([r, g, b, a], axis=-1)
 
 
-def pack_rgba8_word(ldr: Vec3) -> jnp.ndarray:
-    """float [0,1) -> one uint32 word per pixel, R|G<<8|B<<16|255<<24 —
-    bitcast_convert_type to uint8 yields the same RGBA byte order as
-    pack_rgba8 (little-endian byte 0 = low bits; asserted by tests). Same
-    truncating cast as pack_rgba8 (raymarcher.cu:168-172). Used by the
-    fused Pallas path so the whole epilogue stays one elementwise pass."""
-    def chan(c):
-        return jnp.clip(c * 255.0, 0.0, 255.0).astype(jnp.uint32)
-
-    return (
-        chan(ldr.x)
-        | (chan(ldr.y) << 8)
-        | (chan(ldr.z) << 16)
-        | jnp.uint32(0xFF000000)
-    )
-
-
-def word_to_rgba8(word: jnp.ndarray) -> jnp.ndarray:
-    """uint32[H, W] packed pixels -> uint8[H, W, 4] RGBA."""
-    import jax
-
-    return jax.lax.bitcast_convert_type(word, jnp.uint8)
-
-
 def downsample_box(ldr: Vec3, s: int) -> Vec3:
     """SSAA resolve: (s*H, s*W) -> (H, W) box filter (post-tonemap).
     s is static; s=1 is the identity (reference behavior)."""
@@ -145,13 +121,13 @@ def yuv420_from_rgba8(frame: jnp.ndarray) -> jnp.ndarray:
     `-f rawvideo -pix_fmt yuv420p` (Y plane, then 2x2-subsampled U, V).
 
     Rationale: the animation transfer format. An RGBA frame is 4 B/px over
-    the device->host link; this is 1.5 B/px computed ON DEVICE (a ~0.1 ms
+    the device->host link; this is 1.5 B/px computed ON DEVICE (one
     elementwise pass + 2x2 box reduce), a 2.67x cut that keeps slow links
     (and PCIe at scale) out of the frame loop. Information-wise it matches
     the reference pipeline, which also hands FFmpeg 8-bit frames that the
     encoder converts to yuv420p before H.264 (main.cpp:60-72: rawvideo
     rgba in, -pix_fmt yuv420p out); doing the conversion on-device just
-    moves swscale's work to the TPU. H and W must be even."""
+    moves swscale's work to the accelerator. H and W must be even."""
     h, w, _ = frame.shape
     if h % 2 or w % 2:
         raise ValueError(f"yuv420 needs even dims, got {w}x{h}")

@@ -6,18 +6,19 @@ normalized coordinates (reference: src/main.cpp:250-263) — and samples it
 with phi/theta mapping plus optional chromatic-aberration phi offsets
 (reference: src/raymarcher.cu:128-146).
 
-TPUs have no texture units and XLA gathers cost ~10-20 ns per gathered
-ELEMENT (near-serial), so the texture is stored quad-packed: for each
+Instead of a texture unit, the texture is stored quad-packed: for each
 channel, one uint32 plane whose entry at (y0, x0) holds the full 2x2
 bilinear footprint — texels (x0, x1) x (ya, yb) at 8 bits each, with
 U-wrap (x1 = (x0+1) mod W) and V-clamp baked in at build time (the plane
 has H+1 rows indexed by y0+1, covering the half-texel bands past both
-poles). A full bilinear RGB sample is exactly 3 gathered elements — the
-information-theoretic minimum (4 texels x 3 channels x 8 bits = 96 bits) —
-with unpack + filtering as cheap VPU math. The chromatic-aberration R/B
-resamples run under a `lax.cond` and are skipped entirely while the effect
-is off — when off the reference samples all three channels at offset 0
-(raymarcher.cu:132,142-144), which is bitwise the G sample.
+poles). A full bilinear RGB sample is exactly 3 gathered elements (4
+texels x 3 channels x 8 bits = 96 bits), with unpack + filtering as
+elementwise math. The chromatic-aberration R/B resamples run under a
+`lax.cond` and are skipped entirely while the effect is off — when off the
+reference samples all three channels at offset 0
+(raymarcher.cu:132,142-144), which is bitwise the G sample. On the H100
+the whole sky fetch, post FX and pack take under 1 ms of a 30 ms 1080p
+frame (PERF.md).
 """
 
 from __future__ import annotations
@@ -40,18 +41,11 @@ class Skybox(NamedTuple):
     [H+1, W] plane where entry (y0+1, x0) packs the 2x2 bilinear footprint
     c(x0,ya) | c(x1,ya)<<8 | c(x0,yb)<<16 | c(x1,yb)<<24 with x1 = (x0+1)
     mod W (U-wrap) and (ya, yb) = (clip(y0), clip(y0+1)) (V-clamp); y0 spans
-    [-1, H-1]. Alpha is unused by the reference shading and dropped.
-
-    `q4` is the channel-INTERLEAVED copy [(H+1)*W, 4] = (qr, qg, qb, 0)
-    rows: when chromatic aberration is off all three channels share one
-    gather index, so ONE row-gather fetches the full 96-bit bilinear
-    footprint — measured ~3x faster than three element-gathers on TPU
-    (XLA gather cost is per gathered SLICE, nearly flat in slice width)."""
+    [-1, H-1]. Alpha is unused by the reference shading and dropped."""
 
     qr: jnp.ndarray
     qg: jnp.ndarray
     qb: jnp.ndarray
-    q4: "jnp.ndarray | None" = None
 
     @property
     def shape(self):
@@ -70,27 +64,13 @@ def _quad_pack(plane: np.ndarray) -> np.ndarray:
     return p[ya] | (right[ya] << 8) | (p[yb] << 16) | (right[yb] << 24)
 
 
-def skybox_from_array(rgba: np.ndarray, fast_table: bool = True) -> Skybox:
+def skybox_from_array(rgba: np.ndarray) -> Skybox:
     """uint8 [H, W, 3or4] host image -> device Skybox (the one-time upload,
-    analog of cudaMemcpy2DToArray at main.cpp:247-248).
-
-    fast_table=False skips the interleaved q4 copy (saves ~2.3x skybox HBM)
-    for consumers that only use the per-channel XLA path — sample_sky_fast
-    and the fused kernel path then fall back to per-channel gathers."""
+    analog of cudaMemcpy2DToArray at main.cpp:247-248)."""
     rgba = np.asarray(rgba)
     if rgba.dtype != np.uint8:
         raise ValueError(f"skybox must be uint8, got {rgba.dtype}")
-    qr = _quad_pack(rgba[..., 0])
-    qg = _quad_pack(rgba[..., 1])
-    qb = _quad_pack(rgba[..., 2])
-    q4 = None
-    if fast_table:
-        q4 = jnp.asarray(np.stack(
-            [qr.reshape(-1), qg.reshape(-1), qb.reshape(-1),
-             np.zeros(qr.size, np.uint32)],
-            axis=-1,
-        ))
-    return Skybox(jnp.asarray(qr), jnp.asarray(qg), jnp.asarray(qb), q4)
+    return Skybox(*(jnp.asarray(_quad_pack(rgba[..., c])) for c in range(3)))
 
 
 def sky_coords_from_uv(h: int, w: int, tx: jnp.ndarray, ty: jnp.ndarray):
@@ -98,9 +78,8 @@ def sky_coords_from_uv(h: int, w: int, tx: jnp.ndarray, ty: jnp.ndarray):
 
     u in [0,1) wraps (u - floor(u)); the filtered sample sits at
     (u*W - 0.5, v*H - 0.5) between texel centers; U taps wrap mod W, V taps
-    clamp to [0, H-1]. Built ONLY from kernel-safe ops (floor / select / int
-    convert — no mod, no gather) so the same code runs inside Pallas kernels
-    and in plain XLA bit-identically.
+    clamp to [0, H-1]. Built from floor / select / int convert only (no
+    mod).
     """
     # wrap-U on the normalized coordinate, clamp-V
     ux = (tx - jnp.floor(tx)) * jnp.float32(w)
@@ -121,17 +100,6 @@ def sky_coords_from_uv(h: int, w: int, tx: jnp.ndarray, ty: jnp.ndarray):
     return yq * w + x0i, fx, fy
 
 
-def corner_bilinear(c00, c10, c01, c11, fx, fy) -> jnp.ndarray:
-    """Bilinear-filter four unpacked texel corners (f32 values 0..255) with
-    fractional weights (fx, fy). Normalized-float read (uint8/255). The ONE
-    definition of the filter expression — quad_bilinear and the windowed
-    Pallas gather (ops/pallas_sky.py) both route through it, so their
-    outputs are bitwise identical."""
-    top = c00 + fx * (c10 - c00)
-    bot = c01 + fx * (c11 - c01)
-    return (top + fy * (bot - top)) * jnp.float32(1.0 / 255.0)
-
-
 def quad_bilinear(t: jnp.ndarray, fx: jnp.ndarray, fy: jnp.ndarray) -> jnp.ndarray:
     """Unpack one gathered uint32 quad (see Skybox) and bilinear-filter it
     with fractional weights (fx, fy). Normalized-float read (uint8/255)."""
@@ -139,7 +107,9 @@ def quad_bilinear(t: jnp.ndarray, fx: jnp.ndarray, fy: jnp.ndarray) -> jnp.ndarr
     c10 = ((t >> 8) & jnp.uint32(0xFF)).astype(jnp.float32)
     c01 = ((t >> 16) & jnp.uint32(0xFF)).astype(jnp.float32)
     c11 = (t >> 24).astype(jnp.float32)
-    return corner_bilinear(c00, c10, c01, c11, fx, fy)
+    top = c00 + fx * (c10 - c00)
+    bot = c01 + fx * (c11 - c01)
+    return (top + fy * (bot - top)) * jnp.float32(1.0 / 255.0)
 
 
 def sample_bilinear(tex: Skybox, tx: jnp.ndarray, ty: jnp.ndarray) -> Vec3:
@@ -159,34 +129,13 @@ def _equirect_uv(d: Vec3, phi_offset):
     """Direction -> equirect uv (raymarcher.cu:134-138):
     tx = 0.5 + (atan2(z, x) + off) / 2pi;  ty = 0.5 - asin(y) / pi.
 
-    Uses the framework's polynomial atan2/asin (~2 ulp; core/fastmath.py)
-    so the SAME code lowers inside Pallas kernels and in plain XLA — the
-    fused kernel path and the reference XLA path stay bit-identical."""
+    Uses the framework's polynomial atan2/asin (~2 ulp; core/fastmath.py),
+    whose exact values the golden images embed."""
     phi = _atan2(d.z, d.x) + phi_offset
     theta = _arcsin(d.y)
     tx = 0.5 + phi / (2.0 * PI)
     ty = 0.5 - theta / PI
     return tx, ty
-
-
-def sky_coords(d: Vec3, ca_offset, h: int, w: int):
-    """Escape direction -> per-channel gather coordinates for the quad
-    planes: ((idx_r, fx_r, fy_r), (idx_g, ...), (idx_b, ...)).
-
-    `ca_offset` is the EFFECTIVE chromatic-aberration phi offset (0.0 when
-    the effect is off, in which case all three coordinate sets are equal —
-    the reference samples all channels at offset 0 then,
-    raymarcher.cu:131-145). Kernel-safe: runs inside the fused Pallas march
-    kernel and in XLA identically. atan2/asin are evaluated once; only the
-    phi offset differs per channel."""
-    phi = _atan2(d.z, d.x)
-    theta = _arcsin(d.y)
-    ty = 0.5 - theta / PI
-    out = []
-    for off in (ca_offset, jnp.float32(0.0), -ca_offset):
-        tx = 0.5 + (phi + off) / (2.0 * PI)
-        out.append(sky_coords_from_uv(h, w, tx, ty))
-    return tuple(out)
 
 
 def sample_sky(tex: Skybox, d: Vec3, effects) -> Vec3:
@@ -213,46 +162,6 @@ def sample_sky(tex: Skybox, d: Vec3, effects) -> Vec3:
         effects.use_chromatic_aberration > 0.5, with_ca, without_ca, None
     )
     return Vec3(r, s_g.y, b)
-
-
-def gather_sky_coords(tex: Skybox, coords, effects) -> Vec3:
-    """The q4 gather economics in ONE place (used by both the host fast
-    path and the fused-kernel epilogue). `coords` is the 3-tuple of
-    per-channel (flat quad index, fx, fy) from `sky_coords` — computed on
-    the host here, or in-kernel by the fused path. With chromatic
-    aberration off all channels share the G index, so ONE row-gather of
-    the interleaved `q4` table fetches the whole 96-bit bilinear footprint
-    (~3x faster than three element-gathers on TPU); CA on — or no fast
-    table — falls back to per-channel element gathers."""
-
-    def bg_shared(_):
-        idx, fx, fy = coords[1]
-        t4 = jnp.take(tex.q4, idx, axis=0)
-        return tuple(quad_bilinear(t4[..., c], fx, fy) for c in range(3))
-
-    def bg_ca(_):
-        planes = (tex.qr, tex.qg, tex.qb)
-        return tuple(
-            quad_bilinear(jnp.take(plane.reshape(-1), idx), fx, fy)
-            for plane, (idx, fx, fy) in zip(planes, coords)
-        )
-
-    if tex.q4 is None:  # no fast table: per-channel gathers (still correct)
-        return Vec3(*bg_ca(None))
-    return Vec3(*jax.lax.cond(
-        effects.use_chromatic_aberration > 0.5, bg_ca, bg_shared, None
-    ))
-
-
-def sample_sky_fast(tex: Skybox, d: Vec3, effects) -> Vec3:
-    """`sample_sky` via `gather_sky_coords`. Bitwise-identical results to
-    sample_sky up to the shared fastmath uv math."""
-    h, w = tex.shape
-    ca_eff = jnp.where(
-        effects.use_chromatic_aberration > 0.5,
-        effects.ca_amount, jnp.float32(0.0),
-    )
-    return gather_sky_coords(tex, sky_coords(d, ca_eff, h, w), effects)
 
 
 def procedural_starfield(height: int = 1024, width: int = 2048, seed: float = 7.0) -> np.ndarray:

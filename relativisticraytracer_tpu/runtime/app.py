@@ -1,7 +1,7 @@
-"""Host application runtime: the TPU-native replacement for the reference's
+"""Host application runtime: the headless replacement for the reference's
 GLFW/OpenGL main loop (src/main.cpp:482-539).
 
-There is no window on a TPU host; the interactive surface is a headless
+There is no window on an accelerator host; the interactive surface is a headless
 `Session` with the exact same controls and clock semantics (key handling
 per key_callback main.cpp:270-306, fixed-step recording clock per
 main.cpp:505-529), plus an offline `AnimationJob` that renders a camera
@@ -47,7 +47,7 @@ _yuv_jit = None
 
 def _yuv_convert(frame):
     """On-device RGBA->planar YUV420 (jitted once; follows the frame's
-    device, so frame-parallel multi-chip animation converts per chip)."""
+    device, so frame-parallel multi-card animation converts per card)."""
     global _yuv_jit
     if _yuv_jit is None:
         import jax
@@ -263,7 +263,7 @@ class Session:
 @dataclasses.dataclass
 class AnimationJob:
     """Offline path-to-video render with checkpoint/resume, pipelined
-    dispatch, and optional frame-parallel multi-chip rendering.
+    dispatch, and optional frame-parallel multi-card rendering.
 
     Frames are indexed on the fixed-step clock (frame k <-> t = k/fps,
     reference: main.cpp:511-515), so every frame is a pure function of
@@ -280,7 +280,7 @@ class AnimationJob:
     the device(s) while the host fetches/encodes earlier ones, hiding the
     per-call host<->device latency (the reference's recording loop is
     likewise throughput-bound, main.cpp:505-529). With `devices=[...]`,
-    frames round-robin across chips — zero communication, linear scaling —
+    frames round-robin across cards — zero communication, linear scaling —
     the frame-parallel complement to parallel/sharding's spatial tiling.
     """
 
@@ -437,12 +437,9 @@ class AnimationJob:
         # dispatch render k, start its device->host copy immediately
         # (`copy_to_host_async`), and drain frame k-depth to the sink — by
         # then its copy has landed, so np.asarray is a cheap host memcpy.
-        # Measured on the chip (480x272 full scene): render-only throughput
-        # 32.0 ms/frame, this pipeline 32.3 — the transfer hides entirely.
-        # A worker-thread fetch pool was measured at +16 ms/frame instead:
-        # concurrent np.asarray calls contend with render dispatch on the
-        # runtime's RPC lock. The reference's loop overlaps render with
-        # encode the same way via its async sink (main.cpp:505-529).
+        # The reference's loop overlaps render with encode the same way via
+        # its async sink (main.cpp:505-529). How much of the transfer and
+        # encode this hides on the GPU is not measured yet (ROADMAP S5).
         pending = collections.deque()   # (k, device frame) — copy already started
         last_done = t_start
 

@@ -1,7 +1,7 @@
 """ctypes bindings for the native frame sink (native/framesink.cpp), with a
 pure-Python fallback.
 
-The native library decouples frame production (the TPU render loop) from
+The native library decouples frame production (the device render loop) from
 frame consumption (FFmpeg encode / raw file write) via a ring buffer and a
 writer thread — the reference stalls its render loop on a synchronous
 fwrite into the FFmpeg pipe (src/main.cpp:85-97); we do not.

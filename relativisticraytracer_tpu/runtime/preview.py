@@ -1,6 +1,7 @@
-"""Live interactive preview: MJPEG over HTTP (stdlib http.server + PIL).
+"""Live interactive preview: MJPEG over HTTP (stdlib http.server + Pillow,
+an optional dependency for the JPEG encode; --terminal needs neither).
 
-The TPU analog of the reference's GLFW window + fly camera
+The analog of the reference's GLFW window + fly camera
 (src/main.cpp:482-539): a background thread runs `Session.tick` (the same
 main-loop semantics — fixed-step clock while recording, path playback,
 effect toggles) and streams JPEG frames to any browser via
@@ -27,7 +28,7 @@ from urllib.parse import parse_qs, urlparse
 from relativisticraytracer_tpu.runtime.app import Session
 
 _PAGE = """<!DOCTYPE html>
-<html><head><title>Relativistic Ray Tracer (TPU)</title><style>
+<html><head><title>Relativistic Ray Tracer</title><style>
   body { margin:0; background:#000; color:#9a9; font:13px monospace;
          display:flex; flex-direction:column; align-items:center }
   #v { margin-top:8px; cursor:crosshair; image-rendering:auto }
@@ -71,6 +72,13 @@ class PreviewServer:
     def __init__(self, session: Session, host: str = "127.0.0.1",
                  port: int = 8000, fps_cap: float = 30.0,
                  jpeg_quality: int = 85):
+        try:
+            import PIL.Image  # noqa: F401 — the JPEG encoder
+        except ImportError as e:
+            raise ImportError(
+                "the MJPEG preview needs the Pillow package (pip install "
+                "pillow); `interactive --terminal` needs no extra package"
+            ) from e
         self.session = session
         self.fps_cap = fps_cap
         self.jpeg_quality = jpeg_quality

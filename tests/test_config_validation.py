@@ -1,27 +1,38 @@
-"""Config knobs must fail loudly at construction, not silently degrade
-(round-3 review findings): a media_pass typo used to silently select the
-~30% slower inline kernel, media_slots < 1 failed much later as an opaque
-IndexError in the replay, noise_octave_cap <= 0 silently erased the
-disk/cloud structure, and odd dims with yuv420p crashed mid-run after
-destructive sink setup."""
+"""Config knobs must fail loudly, not silently degrade: a loop typo used
+to surface only at trace time, noise_octave_cap <= 0 silently erased the
+disk/cloud structure, odd dims with yuv420p crashed mid-run after
+destructive sink setup, and loop="pallas" off a GPU used to fall back to
+the Pallas interpreter."""
 
 import pytest
 
+from relativisticraytracer_tpu import config
 from relativisticraytracer_tpu.config import RenderSettings, SceneConfig
 
 
-def test_media_pass_typo_rejected():
-    with pytest.raises(ValueError, match="media_pass"):
-        RenderSettings(media_pass="Compact")
-    # both legal spellings construct
-    RenderSettings(media_pass="compact")
-    RenderSettings(media_pass="inline")
+def test_loop_typo_rejected():
+    with pytest.raises(ValueError, match="loop"):
+        RenderSettings(loop="whlie")
+    for loop in ("auto", "scan", "while", "pallas"):
+        RenderSettings(loop=loop)
 
 
-def test_media_slots_must_be_positive():
-    with pytest.raises(ValueError, match="media_slots"):
-        RenderSettings(media_slots=0)
-    RenderSettings(media_slots=1)
+def test_auto_loop_is_the_kernel_on_a_gpu(monkeypatch):
+    monkeypatch.setattr(config, "_platform", lambda: "gpu")
+    assert RenderSettings().resolved_loop() == "pallas"
+    assert RenderSettings(loop="pallas").resolved_loop() == "pallas"
+    assert RenderSettings(loop="while").resolved_loop() == "while"
+
+
+def test_auto_loop_is_while_on_the_cpu():
+    assert config._platform() == "cpu"
+    assert RenderSettings().resolved_loop() == "while"
+    assert RenderSettings(loop="scan").resolved_loop() == "scan"
+
+
+def test_pallas_loop_raises_without_a_gpu():
+    with pytest.raises(ValueError, match="GPU"):
+        RenderSettings(loop="pallas").resolved_loop()
 
 
 def test_octave_cap_validated_at_the_source():

@@ -143,7 +143,7 @@ def test_probe_bounds_are_conservative(rng):
 def test_noise_octave_cap_knob(rng):
     """noise_octave_cap: None/large caps are bitwise reference-exact; a low
     cap actually changes the fields (the stylized-preview knob is live).
-    Measured ms/RMSE per cap: docs/precision_trades.json."""
+    Its ms/RMSE per cap on the card: tools/precision_trades.py."""
     pts = _disk_points(rng)
     p = _as_vec3(pts)
     exact_d = np.asarray(accretion_density(SCENE, p, jnp.float32(1.7)))

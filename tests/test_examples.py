@@ -48,7 +48,7 @@ def test_example_executes(path, tmp_path):
         ),
         RRT_EXAMPLE_SMOKE="1",
         JAX_PLATFORMS="cpu",
-        RRT_TPU_COMPILE_CACHE="0",
+        RRT_COMPILE_CACHE="0",
         # the multi-device examples need a virtual mesh on CPU
         XLA_FLAGS="--xla_force_host_platform_device_count=8",
         RRT_RECORDING_DIR=str(tmp_path),

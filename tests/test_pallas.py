@@ -1,10 +1,11 @@
-"""Pallas fused march kernel vs the XLA march path.
+"""The Pallas-Triton march kernel (ops/pallas_march.py) against the XLA
+`while` march.
 
-The kernel body IS render/march.march_step, so equality is structural; this
-verifies the Pallas plumbing (lane-tile remap, padding, mask carriage,
-tile-level conds) byte-for-byte. Runs the kernel in interpreter mode on the
-CPU test backend; on a real TPU the same test runs compiled (tolerance 1 LSB
-for XLA FMA-contraction differences)."""
+The kernel body IS render/march.march_step and its ray generation IS
+render/camera.primary_rays, so on the CPU (Pallas interpreter, passed
+explicitly) the uint8 frames are bitwise equal. On the card the two
+differ only by libdevice vs XLA transcendentals and FMA contraction
+(PERF.md parity table; `gpu`-marked tests below, and chip_smoke.py)."""
 
 import numpy as np
 import pytest
@@ -17,267 +18,132 @@ from relativisticraytracer_tpu.config import (
     RenderSettings,
     SceneConfig,
 )
-from relativisticraytracer_tpu.ops.pallas_march import march_pallas
-from relativisticraytracer_tpu.render.camera import camera_state_from_pose, generate_rays
-from relativisticraytracer_tpu.render.march import march
+from relativisticraytracer_tpu.ops.pallas_march import (
+    march_pallas,
+    render_tile_pallas,
+)
+from relativisticraytracer_tpu.render.camera import camera_state_from_pose
+from relativisticraytracer_tpu.render.pipeline import render_frame, render_tile
+from relativisticraytracer_tpu.render.skybox import skybox_from_array
+from tests.kernel_cases import POSE, SKY, kernel_and_while_frames
 
-ON_TPU = jax.devices()[0].platform == "tpu"
-INTERPRET = not ON_TPU
-
-
-def _rays(w=192, h=64, pose=((0.0, 5.0, -38.0), 0.0, -6.0)):
-    cam = camera_state_from_pose(*pose)
-    origin, direction, _, _ = generate_rays(w, h, cam, CameraEffects())
-    return origin, direction
-
-
-@pytest.mark.parametrize("scene_kw", [
-    dict(enable_disk=False, enable_clouds=False),
-    dict(),
-    dict(spin_a=0.9),
-])
-@pytest.mark.slow
-def test_pallas_march_matches_xla(scene_kw):
-    scene = SceneConfig(max_steps=96, **scene_kw)
-    origin, direction = _rays()
-    intensity, trans, hit, vel = march_pallas(
-        scene, origin, direction, jnp.float32(1.5), 96,
-        block_h=32, block_w=64, unroll=4, interpret=INTERPRET,
-    )
-    ref = march(scene, origin, direction, 1.5, max_steps=96, loop="while")
-    np.testing.assert_array_equal(np.asarray(hit), np.asarray(ref.hit_horizon))
-    # FMA-contraction/fusion-boundary rounding differences: ~1e-9 even in
-    # interpret mode (CPU), up to ~1e-6 compiled on TPU.
-    atol = 2e-6 if ON_TPU else 1e-8
-    for got, want in [
-        (intensity.x, ref.intensity.x), (intensity.y, ref.intensity.y),
-        (intensity.z, ref.intensity.z), (trans, ref.transmittance),
-        (vel.x, ref.v.x), (vel.y, ref.v.y), (vel.z, ref.v.z),
-    ]:
-        np.testing.assert_allclose(
-            np.asarray(got), np.asarray(want), rtol=2e-6, atol=atol
-        )
+@pytest.mark.parametrize("name", ["vacuum", "kerr09", "disk_only", "full_fx"])
+def test_kernel_frame_equals_while(name):
+    got, want, (h, w) = kernel_and_while_frames(name, block=(8, 16))
+    assert got.shape == (h, w, 4) and got.dtype == np.uint8
+    np.testing.assert_array_equal(got, want)
 
 
-@pytest.mark.slow
-def test_group_rows_media_conds_are_exact():
-    # media_group_rows refines the media-skip lax.cond to row slices; a
-    # slice skips only when every lane's probe is False, so the result must
-    # be IDENTICAL to whole-tile conds (and to the uncond XLA path).
-    scene = SceneConfig(max_steps=96)
-    origin, direction = _rays()
-    whole = march_pallas(
-        scene, origin, direction, jnp.float32(1.5), 96,
-        block_h=32, block_w=64, unroll=4, group_rows=0, interpret=INTERPRET,
-    )
-    grouped = march_pallas(
-        scene, origin, direction, jnp.float32(1.5), 96,
-        block_h=32, block_w=64, unroll=4, group_rows=4, interpret=INTERPRET,
-    )
-    for got, want in zip(grouped, whole):
-        if hasattr(got, "x"):
-            for a, b in zip((got.x, got.y, got.z), (want.x, want.y, want.z)):
-                np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
-        else:
-            np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
-
-
-@pytest.mark.slow
-def test_pallas_handles_nondivisible_image():
-    # 70x100 image padded up to block multiples then cropped.
-    scene = SceneConfig(max_steps=32, enable_clouds=False)
-    origin, direction = _rays(w=100, h=70)
-    intensity, trans, hit, vel = march_pallas(
-        scene, origin, direction, jnp.float32(0.5), 32,
-        block_h=32, block_w=64, unroll=4, interpret=INTERPRET,
-    )
-    assert trans.shape == (70, 100)
-    ref = march(scene, origin, direction, 0.5, max_steps=32, loop="scan")
-    np.testing.assert_allclose(
-        np.asarray(trans), np.asarray(ref.transmittance), rtol=2e-6
-    )
-
-
-def test_lane_tile_roundtrip():
-    from relativisticraytracer_tpu.ops.pallas_march import (
-        _from_lane_tiles,
-        _to_lane_tiles,
-    )
-
-    a = jnp.arange(64 * 256, dtype=jnp.float32).reshape(64, 256)
-    t = _to_lane_tiles(a, 32, 64)
-    assert t.shape == (64 * 256 // 128, 128)
-    back = _from_lane_tiles(t, 64, 256, 32, 64)
-    np.testing.assert_array_equal(np.asarray(back), np.asarray(a))
-
-
-@pytest.mark.slow
-def test_camera_kernel_matches_plane_kernel():
-    """In-kernel ray generation == generate_rays + plane kernel."""
-    from relativisticraytracer_tpu.ops.pallas_march import march_pallas_camera
-
-    scene = SceneConfig(max_steps=48)
-    cam = camera_state_from_pose((0.0, 5.0, -38.0), 0.0, -6.0)
-    eff = CameraEffects()  # lens distortion on
-    origin, direction, _, _ = generate_rays(100, 70, cam, eff)
-    a = march_pallas_camera(
-        scene, cam, eff, jnp.float32(1.5), 100, 70, 48,
-        block_h=32, block_w=64, unroll=4, interpret=INTERPRET,
-    )
-    b = march_pallas(
-        scene, origin, direction, jnp.float32(1.5), 48,
-        block_h=32, block_w=64, unroll=4, interpret=INTERPRET,
-    )
-    for got, want in zip(
-        [a[0].x, a[0].y, a[0].z, a[1], a[3].x, a[3].y, a[3].z],
-        [b[0].x, b[0].y, b[0].z, b[1], b[3].x, b[3].y, b[3].z],
-    ):
-        # ulp-level raygen rounding (iota-int vs arange path) accumulates
-        # over the march; directions/intensities agree to ~1e-6.
-        np.testing.assert_allclose(
-            np.asarray(got), np.asarray(want), rtol=2e-6, atol=5e-7
-        )
-    np.testing.assert_array_equal(np.asarray(a[2]), np.asarray(b[2]))
-
-
-# ---------------------------------------------------------------------------
-# Fused sky path: in-kernel gather addressing + single-pass epilogue
-# ---------------------------------------------------------------------------
-
-def _fused_setup(w=96, h=64, steps=48, **scene_kw):
-    from relativisticraytracer_tpu.render.skybox import (
-        procedural_starfield,
-        skybox_from_array,
-    )
-
-    scene = SceneConfig(max_steps=steps, **scene_kw)
-    settings = RenderSettings(width=w, height=h, max_steps=steps, loop="while")
-    sky = skybox_from_array(procedural_starfield(32, 64))
-    cam = camera_state_from_pose((0.0, 5.0, -38.0), 0.0, -6.0)
-    return scene, settings, sky, cam
-
-
-@pytest.mark.slow
-@pytest.mark.parametrize("ca_on", [False, True])
-def test_fused_sky_frame_matches_xla(ca_on):
-    """render_frame_pallas (fused sky addressing in-kernel, q4 row-gather /
-    CA per-channel gathers, word pack) == the XLA reference path, to 1 LSB."""
-    from relativisticraytracer_tpu.ops.pallas_march import render_frame_pallas
-    from relativisticraytracer_tpu.render.pipeline import render_frame
-
-    scene, settings, sky, cam = _fused_setup()
-    eff = CameraEffects(use_chromatic_aberration=1.0 if ca_on else 0.0)
-    got = np.asarray(render_frame_pallas(
-        scene, settings, cam, eff, 1.5, sky, interpret=INTERPRET))
-    want = np.asarray(render_frame(scene, settings, cam, eff, 1.5, sky))
-    assert got.shape == want.shape == (64, 96, 4)
-    diff = np.abs(got.astype(int) - want.astype(int))
-    assert diff.max() <= 1, f"max LSB diff {diff.max()}"
-    assert (diff > 0).mean() < 0.02
-
-
-@pytest.mark.slow
-def test_fused_sky_frame_nondivisible_and_kerr():
-    """Block-padded odd frame + spin term through the fused path."""
-    from relativisticraytracer_tpu.ops.pallas_march import render_frame_pallas
-    from relativisticraytracer_tpu.render.pipeline import render_frame
-
-    scene, _, sky, cam = _fused_setup(steps=32, spin_a=0.9)
-    settings = RenderSettings(width=100, height=70, max_steps=32, loop="while")
-    eff = CameraEffects()
-    got = np.asarray(render_frame_pallas(
-        scene, settings, cam, eff, 0.5, sky, interpret=INTERPRET))
-    want = np.asarray(render_frame(scene, settings, cam, eff, 0.5, sky))
-    assert got.shape == (70, 100, 4)
-    diff = np.abs(got.astype(int) - want.astype(int))
-    assert diff.max() <= 1
-
-
-@pytest.mark.slow
-def test_fused_supersample_matches_xla():
-    from relativisticraytracer_tpu.ops.pallas_march import render_frame_pallas
-    from relativisticraytracer_tpu.render.pipeline import render_frame
-
-    scene, _, sky, cam = _fused_setup(steps=32)
-    settings = RenderSettings(width=48, height=32, max_steps=32,
-                              loop="while", supersample=2)
-    eff = CameraEffects()
-    got = np.asarray(render_frame_pallas(
-        scene, settings, cam, eff, 1.0, sky, interpret=INTERPRET))
-    want = np.asarray(render_frame(scene, settings, cam, eff, 1.0, sky))
-    assert got.shape == (32, 48, 4)
-    diff = np.abs(got.astype(int) - want.astype(int))
-    assert diff.max() <= 1
-
-
-@pytest.mark.slow
-def test_fused_nosky_matches_xla():
-    from relativisticraytracer_tpu.ops.pallas_march import render_frame_pallas
-    from relativisticraytracer_tpu.render.pipeline import render_frame
-
-    scene, settings, _, cam = _fused_setup(steps=32)
-    eff = CameraEffects()
-    got = np.asarray(render_frame_pallas(
-        scene, settings, cam, eff, 1.0, None, interpret=INTERPRET))
-    want = np.asarray(render_frame(scene, settings, cam, eff, 1.0, None))
-    diff = np.abs(got.astype(int) - want.astype(int))
-    assert diff.max() <= 1
-
-
-def test_pack_word_matches_pack_rgba8():
-    """uint32 word pack + bitcast must reproduce pack_rgba8's RGBA byte
-    order exactly (guards the little-endian bitcast assumption)."""
-    from relativisticraytracer_tpu.core.vecmath import Vec3
-    from relativisticraytracer_tpu.render.postfx import (
-        pack_rgba8,
-        pack_rgba8_word,
-        word_to_rgba8,
-    )
-
-    rng = np.random.default_rng(7)
-    ldr = Vec3(*[jnp.asarray(rng.uniform(-0.1, 1.2, (13, 17)),
-                             dtype=jnp.float32) for _ in range(3)])
-    a = np.asarray(pack_rgba8(ldr))
-    b = np.asarray(word_to_rgba8(pack_rgba8_word(ldr)))
+def test_kernel_block_shape_does_not_change_the_frame():
+    """A block that cuts the frame differently (4x8 rays, 2 steps per loop
+    trip) gives the same frame: exits and media conds are exact."""
+    a, _, _ = kernel_and_while_frames("disk_only", block=(8, 16))
+    b, _, _ = kernel_and_while_frames("disk_only", block=(4, 8), unroll=2)
     np.testing.assert_array_equal(a, b)
 
 
+def test_kernel_rejects_non_power_of_two_blocks():
+    with pytest.raises(ValueError, match="powers of two"):
+        kernel_and_while_frames("vacuum", block=(6, 8))
+
+
+def test_march_pallas_pads_then_crops():
+    """The padded grid (blocks past the frame edge) is cropped away: every
+    output plane has the requested (height, width)."""
+    scene = SceneConfig(max_steps=8)
+    cam = camera_state_from_pose(*POSE)
+    out = jax.eval_shape(
+        lambda t: march_pallas(scene, cam, CameraEffects(), t, 37, 13, 8,
+                               block=(8, 16), interpret=True),
+        jnp.float32(0.0))
+    for plane in (out.intensity.x, out.transmittance, out.hit_horizon,
+                  out.v.z):
+        assert plane.shape == (13, 37)
+    assert out.hit_horizon.dtype == jnp.bool_
+    assert out.p is None and out.active is None
+
+
+def test_kernel_lowers_to_triton_for_cuda():
+    """The whole kernel (full scene: noise, media conds, while exit) lowers
+    through Pallas's Triton route for CUDA — checked on any machine, so an
+    op without a Triton lowering fails here, not on the card."""
+    scene = SceneConfig(max_steps=16)
+    cam = camera_state_from_pose(*POSE)
+    eff = CameraEffects()
+    fn = jax.jit(lambda c, t: march_pallas(scene, c, eff, t, 64, 32, 16))
+    text = fn.trace(cam, jnp.float32(1.0)).lower(
+        lowering_platforms=("cuda",)).as_text()
+    assert "__gpu$xla.gpu.triton" in text
+    assert 'name = "rrt_march"' in text
+
+
+@pytest.mark.gpu
+def test_compiled_kernel_matches_xla_on_gpu(gpu_device):
+    """On the card: kernel vs XLA within the parity budget (the two differ
+    by libdevice vs XLA transcendentals and FMA contraction)."""
+    scene = SceneConfig(max_steps=400)
+    cam = camera_state_from_pose(*POSE)
+    sky = skybox_from_array(SKY)
+    eff = CameraEffects()
+    ker = np.asarray(render_tile(
+        scene, RenderSettings(width=192, height=108, max_steps=400,
+                              loop="pallas"), cam, eff, 1.5, sky))
+    xla = np.asarray(render_tile(
+        scene, RenderSettings(width=192, height=108, max_steps=400,
+                              loop="while"), cam, eff, 1.5, sky))
+    diff = ker[..., :3].astype(int) - xla[..., :3].astype(int)
+    assert np.sqrt(np.mean((diff / 255.0) ** 2)) < 1e-3
+
+
 @pytest.mark.slow
-def test_fused_path_traces_under_outer_jit():
-    """The CLI/Renderer path wraps render_frame_pallas in an OUTER jit —
-    everything inside (incl. pad widths derived from block-padded dims)
-    must stay static under tracing. Lowering alone exercises this
-    (regression: jitted march_pallas_camera_sky once returned hp/wp ints,
-    which became tracers feeding jnp.pad)."""
+def test_kernel_frame_equals_while_at_larger_size():
+    """100x70 Kerr full scene, 96 steps: many blocks, a ragged edge in
+    both directions, the default block shape."""
+    scene = SceneConfig(max_steps=96, spin_a=0.9)
+    settings = RenderSettings(width=100, height=70, max_steps=96,
+                              loop="while")
+    sky = skybox_from_array(SKY)
+    cam = camera_state_from_pose(*POSE)
+    eff = CameraEffects(use_chromatic_aberration=1.0)
+    got = np.asarray(render_tile_pallas(scene, settings, cam, eff, 0.5,
+                                         sky, interpret=True))
+    want = np.asarray(render_frame(scene, settings, cam, eff, 0.5, sky))
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.slow
+def test_kernel_path_traces_under_outer_jit():
+    """The Renderer wraps the kernel path in an outer jit: everything that
+    sizes the kernel (padding, grid) must stay static under tracing."""
     import functools
 
-    from relativisticraytracer_tpu.ops.pallas_march import render_frame_pallas
-
-    scene, settings, sky, cam = _fused_setup(w=64, h=32, steps=8)
-    fn = functools.partial(
-        render_frame_pallas, scene, settings, interpret=INTERPRET)
-    out = jax.eval_shape(fn, cam, CameraEffects(), jnp.float32(1.0), sky)
+    scene = SceneConfig(max_steps=8)
+    settings = RenderSettings(width=64, height=32, max_steps=8, loop="while")
+    fn = jax.jit(functools.partial(render_tile_pallas, scene, settings,
+                                   interpret=True))
+    out = jax.eval_shape(fn, camera_state_from_pose(*POSE), CameraEffects(),
+                         jnp.float32(1.0), skybox_from_array(SKY))
     assert out.shape == (32, 64, 4) and out.dtype == jnp.uint8
 
 
-@pytest.mark.slow
-def test_fused_sky_without_fast_table():
-    """q4=None (fast_table=False) must fall back to per-channel gathers and
-    still match the XLA path."""
-    from relativisticraytracer_tpu.ops.pallas_march import render_frame_pallas
-    from relativisticraytracer_tpu.render.pipeline import render_frame
-    from relativisticraytracer_tpu.render.skybox import (
-        procedural_starfield,
-        skybox_from_array,
-    )
-
+def test_offset_tile_equals_crop():
+    """A tile at a pixel offset (what each card of a sharded frame runs)
+    is bitwise the matching crop of the whole frame, through the kernel
+    and through the XLA path."""
     scene = SceneConfig(max_steps=32, enable_clouds=False)
-    settings = RenderSettings(width=64, height=32, max_steps=32, loop="while")
-    sky = skybox_from_array(procedural_starfield(16, 32), fast_table=False)
-    assert sky.q4 is None
-    cam = camera_state_from_pose((0.0, 5.0, -38.0), 0.0, -6.0)
+    settings = RenderSettings(width=48, height=24, max_steps=32,
+                              loop="while")
+    sky = skybox_from_array(SKY)
+    cam = camera_state_from_pose(*POSE)
     eff = CameraEffects()
-    got = np.asarray(render_frame_pallas(
-        scene, settings, cam, eff, 1.0, sky, interpret=INTERPRET))
-    want = np.asarray(render_frame(scene, settings, cam, eff, 1.0, sky))
-    assert np.abs(got.astype(int) - want.astype(int)).max() <= 1
+    full = np.asarray(render_frame(scene, settings, cam, eff, 1.0, sky))
+    x0, y0, tw, th = 16, 8, 32, 16
+    crop = full[y0:y0 + th, x0:x0 + tw]
+    tile_k = np.asarray(render_tile_pallas(
+        scene, settings, cam, eff, 1.0, sky, tile=(tw, th),
+        offset=(jnp.float32(x0), jnp.float32(y0)), interpret=True,
+        block=(8, 16)))
+    tile_x = np.asarray(render_tile(scene, settings, cam, eff, 1.0, sky,
+                                    tile=(tw, th), offset=(x0, y0)))
+    np.testing.assert_array_equal(tile_x, crop)
+    np.testing.assert_array_equal(tile_k, crop)

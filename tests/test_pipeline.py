@@ -254,19 +254,14 @@ def test_full_frame_matches_oracle_second_full_scene_pose(sky_small):
     assert rmse < 2e-3, f"RMSE {rmse}"
 
 
-@pytest.mark.slow
-def test_explicit_pallas_loop_interprets_off_tpu(sky_small):
-    """loop='pallas' on a non-TPU backend must run (interpreter mode), not
-    die at Mosaic lowering — and must match the while-loop path."""
-    scene = SceneConfig(max_steps=32, enable_clouds=False)
+def test_explicit_pallas_loop_raises_without_gpu(sky_small):
+    """loop='pallas' off a GPU is an error at the first render — no
+    fallback to the Pallas interpreter, to another loop, or to the CPU."""
+    scene = SceneConfig(max_steps=8, enable_clouds=False)
     cam = camera_state_from_pose((0.0, 5.0, -38.0), 0.0, -6.0)
-    rp = Renderer(scene, RenderSettings(width=64, height=32, loop="pallas"),
-                  skybox_rgba=sky_small)
-    rw = Renderer(scene, RenderSettings(width=64, height=32, loop="while"),
-                  skybox_rgba=sky_small)
-    fp = rp.render_np(cam, CameraEffects(), 1.0)
-    fw = rw.render_np(cam, CameraEffects(), 1.0)
-    np.testing.assert_array_equal(fp, fw)
+    with pytest.raises(ValueError, match="GPU"):
+        Renderer(scene, RenderSettings(width=16, height=8, loop="pallas"),
+                 skybox_rgba=sky_small).render(cam)
 
 
 def test_settings_max_steps_falls_back_to_scene():

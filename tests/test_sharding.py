@@ -1,4 +1,4 @@
-"""Multi-chip tiling: sharded render must equal single-device render
+"""Multi-card tiling: sharded render must equal single-device render
 bit-for-bit (SURVEY.md §4: 'a multi-chip tile-split render is tested by
 asserting tiled == untiled'). Runs on 8 virtual CPU devices (conftest)."""
 
@@ -76,73 +76,20 @@ def test_mesh_factorization():
 
 @pytest.mark.slow
 def test_sharded_pallas_matches_unsharded():
-    """Multi-chip + fused kernel: each device runs the Pallas march
-    (interpreted on the CPU mesh) on its tile; result must equal the
-    single-device pallas render."""
+    """Multi-card + kernel: each device runs the march kernel (interpreted
+    here) on its tile at its pixel offset; the result must equal the
+    single-device kernel frame and the XLA frame bit for bit."""
+    from relativisticraytracer_tpu.ops.pallas_march import render_tile_pallas
+
     scene, settings, sky, cam, eff = _setup(w=128, h=64, steps=48)
-    settings = RenderSettings(width=128, height=64, max_steps=48, loop="pallas")
-    mesh = make_mesh(devices=jax.devices()[:2], shape=(2, 1))
-    tiled = np.asarray(
-        render_frame_sharded(scene, settings, mesh, cam, eff, 1.0, sky)
-    )
-    import functools
-    import jax as _jax
-
-    if _jax.default_backend() == "tpu":
-        from relativisticraytracer_tpu.ops.pallas_march import render_frame_pallas
-
-        untiled = np.asarray(
-            _jax.jit(
-                functools.partial(render_frame_pallas, scene, settings)
-            )(cam, eff, 1.0, sky)
-        )
-    else:
-        untiled = None
-    if untiled is None:
-        # On CPU, compare against the plane-kernel pipeline instead.
-        from relativisticraytracer_tpu.render.pipeline import render_frame
-
-        base = RenderSettings(width=128, height=64, max_steps=48, loop="while")
-        untiled = np.asarray(render_frame(scene, base, cam, eff, 1.0, sky))
-        diff = tiled[..., :3].astype(int) - untiled[..., :3].astype(int)
-        assert np.abs(diff).max() <= 1  # FMA/fusion rounding only
-    else:
-        np.testing.assert_array_equal(tiled, untiled)
-
-
-@pytest.mark.slow
-@pytest.mark.parametrize("shape,fx", [((4, 2), False), ((1, 8), True)])
-def test_sharded_compact_matches_single_chip(shape, fx):
-    """The per-shard segment-replay compact path (the fast single-chip
-    renderer, sharded) must be BITWISE the single-chip compact frame: ray
-    gen, sky addressing, and the vignette uv all run in global pixel
-    coordinates via the shard's SMEM (x0, y0) offset. fx=True turns on
-    lens distortion + chromatic aberration + vignette — the offset-
-    dependent uv paths."""
-    from relativisticraytracer_tpu.ops.pallas_compact import (
-        render_frame_pallas_compact,
-    )
-
-    scene = SceneConfig(max_steps=48)
-    settings = RenderSettings(width=128, height=64, max_steps=48,
-                              loop="pallas")
-    assert settings.media_pass == "compact"  # the default fast path
-    sky = skybox_from_array(procedural_starfield(32, 64))
-    cam = camera_state_from_pose((0.0, 5.0, -38.0), 0.0, -6.0)
-    eff = CameraEffects()
-    if fx:
-        eff = CameraEffects(
-            use_lens_distortion=1.0, distortion_amount=-0.15,
-            use_chromatic_aberration=1.0, ca_amount=0.004,
-            use_vignette=1.0,
-        )
-    mesh = make_mesh(shape=shape)
-    tiled = np.asarray(
-        render_frame_sharded(scene, settings, mesh, cam, eff, 1.0, sky)
-    )
-    untiled = np.asarray(render_frame_pallas_compact(
+    mesh = make_mesh(devices=jax.devices()[:4], shape=(2, 2))
+    tiled = np.asarray(render_frame_sharded(
+        scene, settings, mesh, cam, eff, 1.0, sky, interpret=True))
+    untiled = np.asarray(render_tile_pallas(
         scene, settings, cam, eff, 1.0, sky, interpret=True))
     np.testing.assert_array_equal(tiled, untiled)
+    np.testing.assert_array_equal(
+        tiled, np.asarray(render_frame(scene, settings, cam, eff, 1.0, sky)))
 
 
 @pytest.mark.slow
@@ -159,94 +106,23 @@ def test_sharded_supersample_matches_unsharded():
     np.testing.assert_array_equal(tiled, untiled)
 
 
-@pytest.mark.slow
-@pytest.mark.parametrize(
-    "shape,fx,ss",
-    [((4, 2), False, 1), ((2, 4), True, 1), ((8, 1), False, 1),
-     ((4, 2), False, 2)],
-)
-def test_interleaved_compact_matches_single_chip(shape, fx, ss):
-    """Strip-interleaved shard assignment (load balance, VERDICT r3 #2):
-    each device renders strips spread across the frame; host reassembly
-    must be BITWISE the single-chip compact frame — including the
-    offset-dependent uv paths (lens distortion/CA/vignette) and
-    supersampling (strips are multiples of ss)."""
-    from relativisticraytracer_tpu.ops.pallas_compact import (
-        render_frame_pallas_compact,
-    )
-    from relativisticraytracer_tpu.parallel.sharding import (
-        interleave_params,
-        reassemble_strips,
-    )
-
-    scene = SceneConfig(max_steps=48)
-    settings = RenderSettings(width=128, height=64, max_steps=48,
-                              loop="pallas", supersample=ss)
-    sky = skybox_from_array(procedural_starfield(32, 64))
-    cam = camera_state_from_pose((0.0, 5.0, -38.0), 0.0, -6.0)
-    eff = CameraEffects()
-    if fx:
-        eff = CameraEffects(
-            use_lens_distortion=1.0, distortion_amount=-0.15,
-            use_chromatic_aberration=1.0, ca_amount=0.004,
-            use_vignette=1.0,
-        )
-    mesh = make_mesh(shape=shape)
-    dev_layout = np.asarray(render_frame_sharded(
-        scene, settings, mesh, cam, eff, 1.0, sky, interleave=True))
-    tiled = reassemble_strips(dev_layout, *interleave_params(settings, mesh))
-    untiled = np.asarray(render_frame_pallas_compact(
-        scene, settings, cam, eff, 1.0, sky, interpret=True))
+@pytest.mark.parametrize("interpret", [False, True],
+                         ids=["xla_while", "kernel"])
+def test_small_sharded_frame_equals_untiled(interpret):
+    """2x2 mesh, tiny frame: the per-shard pixel offsets (each card
+    generates its own rays) reproduce the one-device frame exactly, on
+    the XLA path and through the kernel."""
+    scene, settings, sky, cam, eff = _setup(w=16, h=8, steps=8)
+    mesh = make_mesh(devices=jax.devices()[:4], shape=(2, 2))
+    tiled = np.asarray(render_frame_sharded(
+        scene, settings, mesh, cam, eff, 1.0, sky, interpret=interpret))
+    untiled = np.asarray(render_frame(scene, settings, cam, eff, 1.0, sky))
     np.testing.assert_array_equal(tiled, untiled)
 
 
-@pytest.mark.slow
-@pytest.mark.parametrize("interleave", [True, "auto"])
-def test_interleaved_renderer_reassemble_helper(interleave):
-    """interleave=True and the default "auto" (which must resolve to the
-    interleaved assignment on the compact path) both reassemble to the
-    single-chip frame bitwise."""
-    scene = SceneConfig(max_steps=32)
-    settings = RenderSettings(width=128, height=64, max_steps=32,
-                              loop="pallas")
-    sky = skybox_from_array(procedural_starfield(32, 64))
-    cam = camera_state_from_pose((0.0, 5.0, -38.0), 0.0, -6.0)
-    eff = CameraEffects()
-    mesh = make_mesh(shape=(4, 2))
-    from relativisticraytracer_tpu.ops.pallas_compact import (
-        render_frame_pallas_compact,
-    )
-    from relativisticraytracer_tpu.parallel.sharding import (
-        resolve_interleave,
-    )
-
-    assert resolve_interleave(scene, settings, "auto") is True
-    fn = make_sharded_renderer(scene, settings, mesh, interleave=interleave)
-    out = fn.reassemble(fn(cam, eff, 1.0, sky))
-    untiled = np.asarray(render_frame_pallas_compact(
-        scene, settings, cam, eff, 1.0, sky, interpret=True))
-    np.testing.assert_array_equal(out, untiled)
-
-
-def test_auto_interleave_resolves_false_off_compact_path():
-    """"auto" must pick the contiguous assignment (and an identity
-    reassemble) when the compact fast path does not apply."""
-    from relativisticraytracer_tpu.parallel.sharding import (
-        resolve_interleave,
-    )
-
-    scene, settings, sky, cam, eff = _setup()  # loop="while"
-    assert resolve_interleave(scene, settings, "auto") is False
-    vacuum = SceneConfig(max_steps=32, enable_disk=False,
-                         enable_clouds=False)
-    pallas = RenderSettings(width=128, height=64, max_steps=32,
-                            loop="pallas")
-    assert resolve_interleave(vacuum, pallas, "auto") is False
-
-
-def test_interleave_requires_compact_path():
-    scene, settings, sky, cam, eff = _setup()  # loop="while"
-    mesh = make_mesh(shape=(4, 2))
-    with pytest.raises(ValueError):
-        render_frame_sharded(scene, settings, mesh, cam, eff, 0.0, sky,
-                             interleave=True)
+def test_sharded_pallas_loop_raises_without_gpu():
+    scene, _, sky, cam, eff = _setup(w=16, h=8, steps=8)
+    settings = RenderSettings(width=16, height=8, max_steps=8, loop="pallas")
+    mesh = make_mesh(devices=jax.devices()[:4], shape=(2, 2))
+    with pytest.raises(ValueError, match="GPU"):
+        render_frame_sharded(scene, settings, mesh, cam, eff, 1.0, sky)

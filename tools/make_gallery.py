@@ -1,5 +1,6 @@
 #!/usr/bin/env python
-"""Render the docs/gallery images on the current backend (intended: TPU).
+"""Render the docs/gallery images on the current backend (a GPU, for
+full-size renders in reasonable time).
 
     python tools/make_gallery.py [--fast]
 """

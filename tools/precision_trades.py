@@ -7,15 +7,15 @@ This measures what spending it buys on THIS hardware:
 
   * noise_octave_cap N: every fbm/ridge octave count in the media stack
     capped at N (SceneConfig.noise_octave_cap; None = reference-exact).
-    Rendered through the production compact path at 1080p, hard-synced
-    ms + RMSE vs the exact frame (computed on device).
+    Rendered through the default path at 1080p: ms + RMSE vs the exact
+    frame (computed on device).
   * step_scale k: SceneConfig.step_size_m scaled by k — the same geodesic
     integral with coarser RK4 steps (every adaptive zone scales together,
     raymarcher.cu:54-62 semantics preserved). Rays terminate in ~1/k the
     steps, so the march cost drops ~linearly — IF the lensing error near
     the photon ring fits the budget.
 
-Writes docs/precision_trades.json. Run on the chip.
+Writes docs/precision_trades.json. Needs an NVIDIA GPU.
 """
 
 import argparse
@@ -40,6 +40,11 @@ def main():
     ap.add_argument("--step-scales", type=float, nargs="*",
                     default=[1.1, 1.25, 1.5])
     args = ap.parse_args()
+
+    from tools.benchlib import card_info, require_gpu
+
+    dev = require_gpu()
+    print(f"# {dev.device_kind} | {card_info()}", flush=True)
 
     from relativisticraytracer_tpu.config import (
         CameraEffects,
